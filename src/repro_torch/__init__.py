@@ -1,0 +1,12 @@
+"""repro_torch — the PyTorch + CUDA/Triton port of ``repro`` for one H100.
+
+Mirrors the JAX package's layout (``repro/core/program.py`` ↔
+``repro_torch/core/program.py``) and imports nothing of it. Every kernel
+the JAX package wrote in Pallas becomes a kernel written by hand for
+Hopper; each keeps a plain PyTorch version beside it. Triton is imported
+only when a kernel is built, so the package imports without it.
+
+Ported so far: ``core`` (ISA, templates, fused programs with the
+generated Triton kernel K1, geometry negotiation, plan cache),
+``kernels`` (the c0 STREAM family) and ``obs`` (spans, metrics).
+"""
