@@ -206,18 +206,18 @@ def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int]) -> str:
     return "\n".join(lines) + "\n"
 
 
-def _load_module(source: str):
-    """Write ``source`` into the build directory (once per content) and
-    import it from there, so ``inspect`` finds the kernel's source.
-    Returns (module, whether this call loaded it)."""
+def load_module(source: str, prefix: str = "k1"):
+    """Write ``source`` into the build directory (once per content, as
+    ``<prefix>_<hash>.py``) and import it from there, so ``inspect`` finds
+    the kernels' source. Returns (module, whether this call loaded it)."""
     digest = hashlib.sha256(source.encode()).hexdigest()[:20]
-    modname = f"repro_torch_k1_{digest}"
+    modname = f"repro_torch_{prefix}_{digest}"
     mod = sys.modules.get(modname)
     if mod is not None:
         return mod, False
     d = build_dir()
     d.mkdir(parents=True, exist_ok=True)
-    path = d / f"k1_{digest}.py"
+    path = d / f"{prefix}_{digest}.py"
     if not path.exists() or path.read_text() != source:
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         tmp.write_text(source)
@@ -229,14 +229,14 @@ def _load_module(source: str):
     return mod, True
 
 
-def check_cuda(tensors: Sequence[torch.Tensor]) -> None:
-    """K1 runs on one CUDA device; anything else raises (the caller asks
-    for the emulator or the oracle explicitly, nothing falls back)."""
+def check_cuda(tensors: Sequence[torch.Tensor], what: str = "K1") -> None:
+    """A kernel runs on one CUDA device; anything else raises (the caller
+    asks for the emulator or the oracle explicitly, nothing falls back)."""
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:
             raise RuntimeError(
-                f"K1 launches on CUDA tensors of one device only (got "
+                f"{what} launches on CUDA tensors of one device only (got "
                 f"{t.device}); place the operands on the GPU or call with "
                 f"mode='interpret' or mode='ref'")
 
@@ -253,7 +253,7 @@ class K1Kernel:
         """(the chain's ``k1_kernel`` JIT function, whether this call
         generated its module). Triton compiles the function per block
         shape and dtype at its first launch."""
-        mod, fresh = _load_module(kernel_source(stages, n_ext))
+        mod, fresh = load_module(kernel_source(stages, n_ext))
         return mod.k1_kernel, fresh
 
     def __call__(self, kernel, table: torch.Tensor,

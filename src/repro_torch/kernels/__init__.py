@@ -1,4 +1,6 @@
-# Custom SIMD instructions (paper §2.2, §4.1) for the H100, ported so far:
+# Custom SIMD instructions (paper §2.2, §4.1, §4.3) for the H100, ported so far:
 #   stream_copy — c0 streaming family (memcpy / STREAM), K1 stage bodies
+#   prefix_scan — c3_prefixsum / c4_chunkscan carried scans, K3/K4 (Triton)
+#   sortnet     — c2_sort / c1_merge bitonic networks, K5/K6 (CUDA C++)
 # ops.py registers them in the ISA; ref.py holds the torch oracles.
 from . import ops, ref  # noqa: F401  (importing ops registers the ISA)

@@ -1,0 +1,252 @@
+"""Carried prefix-scan instructions (paper §4.3.2, Fig. 7) for the H100.
+
+`c3_prefixsum` pipelines a Hillis–Steele network over each incoming vector
+register *plus one extra stage that adds the running total of all previous
+batches* — that carried total is what lets one short instruction scan an
+arbitrarily long stream without blocking. `c4_chunkscan` generalises the
+carry from (+) to the affine map y = a·y_prev + b: Mamba2-SSD's
+inter-chunk state recurrence.
+
+The kernels are Triton, one program per block of ``br`` rows that walks
+its row's column blocks of ``bc`` in order with the carry in registers,
+set to 0 before the loop (the TPU kernel's carry in VMEM scratch across a
+sequential grid axis, reset at step 0, becomes that loop):
+
+* **K3** (:data:`K3`, replaces ``prefix_sum_pallas``): per block
+  ``tl.cumsum(tile) + carry``; the carry is the block's last column.
+* **K4** (:data:`K4`, replaces ``chunk_scan_pallas``): per block
+  ``tl.associative_scan`` of (a, b) under the affine combine, then
+  ``y = A·carry + B``; the carry is y's last column. The output and the
+  carry are ``promote(a, b)``.
+
+What bounds them on the H100: device-memory bytes (each input read once,
+the output written once; a scan does one or two operations per element).
+A block's loads do not depend on the carry, so Triton's software
+pipeline keeps the next blocks' loads in flight while the carry chain
+runs. Ragged rows and columns are masked (a load past the edge reads the
+combine's identity), so nothing is padded: the reference pads rows to 8,
+a TPU sublane rule that would cost 8× the bytes of a one-row operand.
+
+K3 walks a single long row with ONE program, so a one-row scan uses one
+of the 132 SMs (a chained scan with decoupled look-back is its later
+redesign).
+
+:func:`prefix_sum_plain` and :func:`chunk_scan_plain` are the plain
+PyTorch versions of the same blocked walk (Hillis–Steele inside each
+``bc`` block, the carry across blocks, reset per row), which
+``interpret`` mode runs on any device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.fused_kernel import check_cuda, load_module
+
+from .ref import chunk_scan as _affine_scan
+from .ref import shifted
+
+TILE_ELEMS = 4096            # elements of one program's (br, bc) block
+
+
+def block_shape(rows: int, cols: int) -> tuple[int, int]:
+    """The (br, bc) block K3/K4 use for a (rows, cols) operand: the whole
+    row up to 4096 columns, and as many rows as fill 4096 elements."""
+    bc = min(1 << max(cols - 1, 0).bit_length(), TILE_ELEMS)
+    br = min(1 << max(rows - 1, 0).bit_length(), TILE_ELEMS // bc)
+    return br, bc
+
+
+# ---------------------------------------------------------------------------
+# in-block networks (the reference's, on torch tensors) and the plain walk
+# ---------------------------------------------------------------------------
+
+def _hs_shift_add(x: torch.Tensor) -> torch.Tensor:
+    """Hillis–Steele inclusive scan: log2(cols) shifted adds (static)."""
+    c = x.shape[-1]
+    d = 1
+    while d < c:
+        x = x + shifted(x, d, -1, 0)
+        d *= 2
+    return x
+
+
+def _affine_hs(a: torch.Tensor, b: torch.Tensor):
+    """HS scan under affine composition: (A,B)_i ∘ (A,B)_{i-d}."""
+    c = a.shape[-1]
+    d = 1
+    while d < c:
+        b = b + a * shifted(b, d, -1, 0)
+        a = a * shifted(a, d, -1, 1)
+        d *= 2
+    return a, b
+
+
+def _blocks(x: torch.Tensor, bc: int, fill) -> torch.Tensor:
+    """(rows, cols) → (rows, ncb, bc), the ragged last block filled."""
+    rows, cols = x.shape
+    pad = (-cols) % bc
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad), value=fill)
+    return x.reshape(rows, -1, bc)
+
+
+def prefix_sum_plain(x: torch.Tensor, bc: int) -> torch.Tensor:
+    """K3's blocked walk in torch eager: Hillis–Steele inside each block of
+    ``bc`` columns, plus the carry of the blocks before it in the row."""
+    rows, cols = x.shape
+    hs = _hs_shift_add(_blocks(x, bc, 0))
+    totals = hs[:, :, -1]
+    carry = shifted(torch.cumsum(totals, dim=1, dtype=x.dtype), 1, 1, 0)
+    return (hs + carry[:, :, None]).reshape(rows, -1)[:, :cols]
+
+
+def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor,
+                     bc: int) -> torch.Tensor:
+    """K4's blocked walk in torch eager: the affine Hillis–Steele inside
+    each block, then y = A·carry + B with the carry = the previous
+    block's last y (y before the row's first block = 0)."""
+    rows, cols = a.shape
+    dt = torch.promote_types(a.dtype, b.dtype)
+    acum, bcum = _affine_hs(_blocks(a.to(dt), bc, 1), _blocks(b.to(dt), bc, 0))
+    # the carry into each block: the affine scan of the blocks' totals
+    last = _affine_scan(acum[:, :, -1], bcum[:, :, -1])
+    carry = shifted(last, 1, 1, 0)
+    return (acum * carry[:, :, None] + bcum).reshape(rows, -1)[:, :cols]
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4 in Triton
+# ---------------------------------------------------------------------------
+
+TRITON_SOURCE = '''
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def _affine(pa, pb, qa, qb):
+    return pa * qa, qb + qa * pb
+
+
+@triton.jit
+def k3_prefix_sum(X, O, rows, cols, stride_x,
+                  BR: tl.constexpr, BC: tl.constexpr):
+    r = tl.program_id(0).to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)
+    xrow = X + r[:, None] * stride_x
+    orow = O + r[:, None] * cols
+    last = (tl.arange(0, BC) == BC - 1)[None, :]
+    carry = tl.zeros((BR,), O.dtype.element_ty)
+    for c0 in range(0, cols, BC):
+        c = c0 + tl.arange(0, BC)
+        m = (r < rows)[:, None] & (c < cols)[None, :]
+        x = tl.load(xrow + c[None, :], mask=m, other=0)
+        y = (tl.cumsum(x.to(O.dtype.element_ty), axis=1)
+             + carry[:, None]).to(O.dtype.element_ty)
+        tl.store(orow + c[None, :], y, mask=m)
+        carry = tl.sum(tl.where(last, y, 0), axis=1).to(O.dtype.element_ty)
+
+
+@triton.jit
+def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
+                  BR: tl.constexpr, BC: tl.constexpr):
+    r = tl.program_id(0).to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)
+    arow = A + r[:, None] * stride_a
+    brow = B + r[:, None] * stride_b
+    orow = O + r[:, None] * cols
+    last = (tl.arange(0, BC) == BC - 1)[None, :]
+    carry = tl.zeros((BR,), O.dtype.element_ty)
+    for c0 in range(0, cols, BC):
+        c = c0 + tl.arange(0, BC)
+        m = (r < rows)[:, None] & (c < cols)[None, :]
+        a = tl.load(arow + c[None, :], mask=m, other=1).to(O.dtype.element_ty)
+        b = tl.load(brow + c[None, :], mask=m, other=0).to(O.dtype.element_ty)
+        acum, bcum = tl.associative_scan((a, b), 1, _affine)
+        y = (acum * carry[:, None] + bcum).to(O.dtype.element_ty)
+        tl.store(orow + c[None, :], y, mask=m)
+        carry = tl.sum(tl.where(last, y, 0), axis=1).to(O.dtype.element_ty)
+'''
+
+
+def _triton_kernels():
+    """The module of K3/K4, written into the build directory and imported
+    there at first use (Triton reads a kernel's source through
+    ``inspect``)."""
+    return load_module(TRITON_SOURCE, prefix="scan")[0]
+
+
+def _rows_operand(x: torch.Tensor) -> torch.Tensor:
+    """Rows may be strided; the scanned axis must be contiguous."""
+    return x if x.stride(1) == 1 else x.contiguous()
+
+
+class PrefixSumKernel:
+    """The K3 wrapper. ``launches`` counts kernel launches, and only those."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not x.dtype.is_floating_point:
+            raise ValueError(f"K3 scans floating-point rows, got {x.dtype}")
+        check_cuda([x], "K3")
+        x = _rows_operand(x)
+        rows, cols = x.shape
+        out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
+        if x.numel() == 0:
+            return out
+        br, bc = block_shape(rows, cols)
+        with torch.cuda.device(x.device):
+            _triton_kernels().k3_prefix_sum[(-(-rows // br),)](
+                x, out, rows, cols, x.stride(0), BR=br, BC=bc,
+                num_warps=8 if br * bc >= 2048 else 4)
+        self.launches += 1
+        return out
+
+
+class ChunkScanKernel:
+    """The K4 wrapper. ``launches`` counts kernel launches, and only those."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        if not dt.is_floating_point:
+            raise ValueError(f"K4 scans floating-point rows, got {dt}")
+        check_cuda([a, b], "K4")
+        a, b = _rows_operand(a), _rows_operand(b)
+        rows, cols = a.shape
+        out = torch.empty((rows, cols), dtype=dt, device=a.device)
+        if a.numel() == 0:
+            return out
+        br, bc = block_shape(rows, cols)
+        with torch.cuda.device(a.device):
+            _triton_kernels().k4_chunk_scan[(-(-rows // br),)](
+                a, b, out, rows, cols, a.stride(0), b.stride(0), BR=br,
+                BC=bc, num_warps=8 if br * bc >= 2048 else 4)
+        self.launches += 1
+        return out
+
+
+#: The process-wide kernel wrappers; ``K3.launches`` / ``K4.launches``.
+K3 = PrefixSumKernel()
+K4 = ChunkScanKernel()
+
+
+def prefix_sum_kernel(x: torch.Tensor, interpret: bool = False) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis of a 2D operand: K3 on
+    CUDA tensors, or its blocked walk in torch (``interpret=True``)."""
+    if interpret:
+        return prefix_sum_plain(x, block_shape(*x.shape)[1])
+    return K3(x)
+
+
+def chunk_scan_kernel(a: torch.Tensor, b: torch.Tensor,
+                      interpret: bool = False) -> torch.Tensor:
+    """Affine carried scan along the last axis; a, b same 2D shape. K4 on
+    CUDA tensors, or its blocked walk in torch (``interpret=True``)."""
+    if a.shape != b.shape:
+        raise ValueError("a and b must match")
+    if interpret:
+        return chunk_scan_plain(a, b, block_shape(*a.shape)[1])
+    return K4(a, b)

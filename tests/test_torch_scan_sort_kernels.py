@@ -1,0 +1,212 @@
+"""K3–K6 against their plain PyTorch versions, on the card.
+
+K3/K4 are Triton and K5/K6 CUDA C++ (built with nvcc at first use);
+neither has a CPU mode, so every test here is marked ``gpu`` and skips
+without a CUDA device. Run them on an H100 with
+``pytest -m gpu tests/test_torch_scan_sort_kernels.py``.
+
+Tolerances: sorts and merges bit-exact (the kernels take the same
+selects as the plain network); scans within the first-order bound of
+their summation order against float64: for the sum,
+``eps·(⌈log2 bc⌉·Σ_{j≤i}|x_j| + Σ_{e<i}|y_e| + |y_i|)`` (a tree inside
+each block of ``bc`` columns, then one add of the carry per block, which
+rounds on the partial sum y_e at each earlier block end e); for the
+affine scan with 0 < a ≤ 1, ``(⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps·Σ_{j≤i}|b_j|``.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels  # noqa: F401 — registers the ISA
+from repro_torch.kernels import ops
+from repro_torch.kernels import prefix_scan as ps
+from repro_torch.kernels import sortnet as sn
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "int32": torch.int32,
+          "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K3–K6 are Triton and CUDA kernels "
+                    "with no CPU mode (their plain versions are tested in "
+                    "test_torch_sortnet / test_torch_prefix_scan)")
+    return torch.device("cuda", 0)
+
+
+def keys(shape, dtype, seed, dev):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        x = torch.from_numpy(rng.integers(-10_000, 10_000, shape,
+                                          dtype=np.int32))
+    else:
+        x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+    return x.to(dtype).to(dev)
+
+
+def prefix_bound(x, bc, eps):
+    """(float64 inclusive sum along the last axis, its elementwise bound)."""
+    y = torch.cumsum(x.double(), -1)
+    ends = y[..., bc - 1::bc].abs()
+    carried = torch.nn.functional.pad(torch.cumsum(ends, -1), (1, 0))
+    blk = torch.arange(x.shape[-1], device=x.device) // bc
+    lg = math.ceil(math.log2(bc))
+    return y, eps * (lg * torch.cumsum(x.abs().double(), -1)
+                     + carried[..., blk] + y.abs())
+
+
+def scan_bound(abs_cum, eps, bc, extra):
+    """Elementwise bound along the last axis."""
+    i = torch.arange(abs_cum.shape[-1], device=abs_cum.device,
+                     dtype=torch.float64)
+    k = math.ceil(math.log2(bc)) + torch.ceil((i + 1) / bc) + extra
+    return k * eps * abs_cum
+
+
+# ---------------------------------------------------------------------------
+# K5 / K6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,width", [
+    ((1, 8), 8), ((5, 64), 8), ((16, 256), 16), ((3, 128), 4),
+    ((7, 32), 32), ((2, 1024), 64), ((3, 8192), 4096), ((5, 1000 * 8), 8)])
+@pytest.mark.parametrize("descending", [False, True])
+def test_k5_matches_network(cuda, shape, width, dtype, descending):
+    x = keys(shape, DTYPES[dtype], 0, cuda)
+    before = sn.K5.launches
+    got = sn.sort_chunks_kernel(x, width=width, descending=descending)
+    assert sn.K5.launches == before + 1
+    assert torch.equal(got, sn.sort_chunks_kernel(
+        x, width=width, descending=descending, interpret=True))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("rows,w", [(1, 8), (4, 16), (9, 64), (16, 128),
+                                    (3, 2048), (7, 2)])
+@pytest.mark.parametrize("descending", [False, True])
+def test_k6_matches_network(cuda, rows, w, dtype, descending):
+    def sorted_chunks(seed):
+        x = keys((rows, 4, w), DTYPES[dtype], seed, cuda)
+        return torch.sort(x).values.reshape(rows, 4 * w)
+
+    a, b = sorted_chunks(1), sorted_chunks(2)
+    before = sn.K6.launches
+    lo, hi = sn.merge_sorted_kernel(a, b, width=w, descending=descending)
+    assert sn.K6.launches == before + 1
+    plo, phi = sn.merge_sorted_kernel(a, b, width=w, descending=descending,
+                                      interpret=True)
+    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+
+
+def test_k6_strided_rows_as_the_app_passes_them(cuda):
+    w = 256
+    x = torch.sort(keys((64, w), torch.int32, 3, cuda)).values.view(-1, 2, w)
+    a, b = x[:, 0], x[:, 1]                      # row stride 2w
+    assert a.stride() == (2 * w, 1)
+    lo, hi = sn.merge_sorted_kernel(a, b, width=w)
+    rlo, rhi = sn.merge_sorted_kernel(a.contiguous(), b.contiguous(),
+                                      width=w, interpret=True)
+    assert torch.equal(lo, rlo) and torch.equal(hi, rhi)
+
+
+@pytest.mark.parametrize("n", [8, 64, 4096, 1 << 16])
+def test_mergesort_app_on_card(cuda, n):
+    x = keys((3, n), torch.float32, 4, cuda)
+    k5, k6 = sn.K5.launches, sn.K6.launches
+    got = ops.sortnet_mergesort(x, max_kernel_width=1024, mode="kernel")
+    assert torch.equal(got, torch.sort(x).values)
+    levels = max(int(math.log2(n)) - 3, 0)
+    assert sn.K5.launches == k5 + 1
+    assert sn.K6.launches == k6 + min(levels, int(math.log2(1024)) - 3)
+
+
+def test_sortnet_wrappers_reject_bad_widths_on_card(cuda):
+    x = keys((2, 8192), torch.float32, 5, cuda)
+    with pytest.raises(ValueError, match="power of two"):
+        sn.sort_chunks_kernel(x, width=12)
+    with pytest.raises(ValueError, match="4096"):
+        sn.sort_chunks_kernel(x, width=8192)
+    with pytest.raises(ValueError, match="2048"):
+        sn.merge_sorted_kernel(x, x, width=4096)
+    with pytest.raises(ValueError, match="float32, int32 or bfloat16"):
+        sn.sort_chunks_kernel(x.double(), width=8)
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1, 8), (4, 128), (8, 1024), (3, 4096),
+                                   (2, 10_000), (37, 300), (1, 1 << 20)])
+def test_k3_within_summation_bound(cuda, shape):
+    x = keys(shape, torch.float32, 6, cuda)
+    before = ps.K3.launches
+    got = ps.prefix_sum_kernel(x)
+    assert ps.K3.launches == before + 1
+    plain = ps.prefix_sum_kernel(x, interpret=True)
+    bc = ps.block_shape(*shape)[1]
+    want, bound = prefix_bound(x, bc, float(torch.finfo(torch.float32).eps))
+    assert bool(((got.double() - want).abs() <= bound).all())
+    assert bool(((plain.double() - want).abs() <= bound).all())
+
+
+def test_k3_bfloat16(cuda):
+    x = keys((4, 3000), torch.bfloat16, 7, cuda)
+    got = ps.prefix_sum_kernel(x)
+    assert got.dtype == torch.bfloat16
+    bc = ps.block_shape(4, 3000)[1]
+    want, bound = prefix_bound(x, bc, 2.0 ** -8)
+    assert bool(((got.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("shape", [(1, 16), (4, 256), (8, 1024), (3, 5000),
+                                   (1000, 32)])
+def test_k4_within_summation_bound(cuda, shape):
+    rng = np.random.default_rng(8)
+    a = torch.from_numpy(rng.uniform(0.2, 1.0, shape).astype(np.float32))
+    a = a.to(cuda)
+    b = keys(shape, torch.float32, 9, cuda)
+    before = ps.K4.launches
+    got = ps.chunk_scan_kernel(a, b)
+    assert ps.K4.launches == before + 1
+    plain = ps.chunk_scan_kernel(a, b, interpret=True)
+    y = torch.zeros(shape[0], dtype=torch.float64, device=cuda)
+    s = torch.zeros_like(y)
+    want, sums = [], []
+    for i in range(shape[1]):
+        y = a[:, i].double() * y + b[:, i].double()
+        s = s + b[:, i].double().abs()
+        want.append(y)
+        sums.append(s)
+    want, sums = torch.stack(want, -1), torch.stack(sums, -1)
+    bound = scan_bound(sums, float(torch.finfo(torch.float32).eps),
+                       ps.block_shape(*shape)[1], 2)
+    assert bool(((got.double() - want).abs() <= bound).all())
+    assert bool(((plain.double() - want).abs() <= bound).all())
+
+
+def test_k4_promotes_mixed_dtypes(cuda):
+    a = torch.full((4, 64), 0.5, dtype=torch.bfloat16, device=cuda)
+    b = keys((4, 64), torch.float32, 10, cuda)
+    got = ps.chunk_scan_kernel(a, b)
+    assert got.dtype == torch.float32
+    want = ps.chunk_scan_kernel(a, b, interpret=True)
+    assert torch.allclose(got, want, rtol=2e-5, atol=1e-5)
+
+
+def test_statescan_on_card_matches_plain(cuda):
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(np.exp(-np.abs(rng.standard_normal(
+        (2, 16, 4), dtype=np.float32)))).to(cuda)
+    s = keys((2, 16, 4, 8, 16), torch.float32, 12, cuda)
+    before = ps.K4.launches
+    got = ops.chunk_scan_state(a, s, axis=1, mode="kernel")
+    assert ps.K4.launches == before + 1
+    want = ops.chunk_scan_state(a, s, axis=1, mode="interpret")
+    assert torch.allclose(got, want, rtol=2e-4, atol=2e-4)

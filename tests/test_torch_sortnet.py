@@ -1,0 +1,319 @@
+"""repro_torch's sorting networks (c2_sort, c1_merge, the mergesort app)
+against the JAX package.
+
+The same seeded numpy inputs go through ``repro`` (Pallas in
+``interpret`` mode, and its jnp oracles) and ``repro_torch`` (the plain
+network K5/K6 are held against, in ``interpret`` mode, and its torch
+oracles). Sorts and merges are exact, so every comparison is bit-exact.
+bfloat16 inputs are float32 values that bfloat16 represents exactly, so
+both frameworks hold identical bits.
+
+The CUDA kernels themselves run only on the card
+(tests/test_torch_scan_sort_kernels.py).
+"""
+import importlib.util
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.kernels  # noqa: F401 — registers the JAX ISA
+import repro_torch.kernels  # noqa: F401 — registers the port's ISA
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels import sortnet as jsn
+from repro_torch.kernels import _cuda
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import sortnet as sn
+
+ROOT = Path(__file__).resolve().parents[1]
+RNG = np.random.default_rng(42)
+JNP = {"float32": jnp.float32, "int32": jnp.int32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "int32": torch.int32,
+         "bfloat16": torch.bfloat16}
+# the reference's mergesort app in interpret mode, compiled once per shape
+# rather than op by op (eagerly it takes seconds a shape on the CPU)
+jmergesort = jax.jit(jops.sortnet_mergesort,
+                     static_argnames=("base_width", "max_kernel_width", "mode"))
+
+
+def arr(shape, dtype):
+    """numpy input for both packages (bf16: exactly representable f32)."""
+    if dtype == "int32":
+        return RNG.integers(-10_000, 10_000, shape).astype(np.int32)
+    x = RNG.standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    return x
+
+
+def both(x, dtype):
+    return jnp.asarray(x, JNP[dtype]), torch.from_numpy(x).to(TORCH[dtype])
+
+
+def as_np(t):
+    if isinstance(t, torch.Tensor):
+        return t.float().numpy() if t.dtype == torch.bfloat16 else t.numpy()
+    return np.asarray(t.astype(jnp.float32) if t.dtype == jnp.bfloat16 else t)
+
+
+def same(got, want):
+    np.testing.assert_array_equal(as_np(got), as_np(want))
+
+
+# ---------------------------------------------------------------------------
+# c2_sort
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+@pytest.mark.parametrize("shape,width", [
+    ((1, 8), 8), ((5, 64), 8), ((16, 256), 16), ((3, 128), 4),
+    ((7, 32), 32), ((2, 1024), 64),
+])
+def test_sort_chunks_matches_jax(shape, width, dtype):
+    jx, tx = both(arr(shape, dtype), dtype)
+    want = jops.sort_chunks(jx, width=width, mode="interpret")
+    same(want, jref.sort_chunks(jx, width=width))
+    same(ops.sort_chunks(tx, width=width, mode="interpret"), want)
+    same(ops.sort_chunks(tx, width=width, mode="ref"), want)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (2, 3, 32)], ids=["2d", "3d"])
+@pytest.mark.parametrize("descending", [False, True])
+def test_sort_descending_and_3d_match_jax(shape, descending):
+    jx, tx = both(arr(shape, "float32"), "float32")
+    want = jops.sort_chunks(jx, width=8, descending=descending,
+                            mode="interpret")
+    for mode in ("interpret", "ref"):
+        same(ops.sort_chunks(tx, width=8, descending=descending, mode=mode),
+             want)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+def test_payload_network_matches_jax(descending):
+    # the key/payload tiebreak K7 (top-k) needs: heavy ties on purpose
+    keys = RNG.integers(0, 4, (6, 64)).astype(np.float32)
+    lane = np.broadcast_to(np.arange(64, dtype=np.int32), keys.shape).copy()
+    jk, jp = jsn.bitonic_sort_network(jnp.asarray(keys), jnp.asarray(lane),
+                                      descending=descending)
+    tk, tp = sn.bitonic_sort_network(torch.from_numpy(keys),
+                                     torch.from_numpy(lane),
+                                     descending=descending)
+    same(tk, jk)
+    same(tp, jp)
+
+
+@pytest.mark.parametrize("width", [2, 8, 64, 4096])
+def test_n_cas_layers_matches_jax(width):
+    assert sn.n_cas_layers(width) == jsn.n_cas_layers(width)
+
+
+# ---------------------------------------------------------------------------
+# c1_merge
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+@pytest.mark.parametrize("rows,w", [(1, 8), (4, 16), (9, 64), (16, 128)])
+def test_merge_sorted_matches_jax(rows, w, dtype):
+    a = np.sort(arr((rows, w), dtype), axis=-1)
+    b = np.sort(arr((rows, w), dtype), axis=-1)
+    (ja, ta), (jb, tb) = both(a, dtype), both(b, dtype)
+    wlo, whi = jops.merge_sorted(ja, jb, mode="interpret")
+    for mode in ("interpret", "ref"):
+        lo, hi = ops.merge_sorted(ta, tb, mode=mode)
+        same(lo, wlo)
+        same(hi, whi)
+
+
+@pytest.mark.parametrize("descending", [False, True])
+def test_merge_kernel_plain_matches_jax_chunked(descending):
+    w = 16
+    order = -1 if descending else 1
+    a = np.sort(arr((3, 4 * w), "float32").reshape(3, 4, w),
+                axis=-1)[..., ::order].reshape(3, 4 * w).copy()
+    b = np.sort(arr((3, 4 * w), "float32").reshape(3, 4, w),
+                axis=-1)[..., ::order].reshape(3, 4 * w).copy()
+    # the reference's kernel merges ascending chunks; descending reverses
+    # the merged order, as the plain network does
+    wlo, whi = jsn.merge_sorted_pallas(jnp.asarray(a), jnp.asarray(b),
+                                       width=w, descending=descending,
+                                       block_rows=3, interpret=True)
+    lo, hi = sn.merge_sorted_kernel(torch.from_numpy(a), torch.from_numpy(b),
+                                    width=w, descending=descending,
+                                    interpret=True)
+    same(lo, wlo)
+    same(hi, whi)
+
+
+# ---------------------------------------------------------------------------
+# the mergesort application (paper §4.3.1)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [8, 64, 512, 4096])
+def test_mergesort_app_matches_jax(n):
+    x = arr((3, n), "float32")
+    want = jmergesort(jnp.asarray(x), mode="interpret")
+    np.testing.assert_array_equal(np.asarray(want), np.sort(x, axis=-1))
+    for mode in ("interpret", "ref"):
+        same(ops.sortnet_mergesort(torch.from_numpy(x), mode=mode), want)
+
+
+def test_mergesort_large_fallback_matches_jax():
+    # above max_kernel_width the base core (a library sort) finishes
+    x = arr((1, 16384), "float32")
+    want = jmergesort(jnp.asarray(x), max_kernel_width=1024,
+                                  mode="interpret")
+    got = ops.sortnet_mergesort(torch.from_numpy(x), max_kernel_width=1024,
+                                mode="interpret")
+    same(got, want)
+    same(got, np.sort(x, axis=-1))
+    assert torch.equal(ref.mergesort(torch.from_numpy(x)), got)
+
+
+def test_mergesort_rejects_non_power_of_two():
+    with pytest.raises(ValueError, match="power of two"):
+        ops.sortnet_mergesort(torch.zeros(1, 24), mode="interpret")
+
+
+# ---------------------------------------------------------------------------
+# odd-even mergesort topology (paper §2.2's other network)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("w", [2, 8, 32, 128, 512])
+def test_oddeven_network_matches_jax(w):
+    x = arr((6, w), "float32")
+    got = sn.oddeven_sort_network(torch.from_numpy(x))
+    same(got, jsn.oddeven_sort_network(jnp.asarray(x)))
+    same(got, np.sort(x, axis=-1))
+
+
+def test_oddeven_matches_bitonic():
+    x = torch.from_numpy(arr((4, 64), "float32"))
+    assert torch.equal(sn.oddeven_sort_network(x),
+                       sn.bitonic_sort_network(x))
+
+
+# ---------------------------------------------------------------------------
+# wrapper checks and dispatch
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("interpret", [True, False])
+def test_wrappers_reject_what_the_reference_rejects(interpret):
+    x = torch.zeros(2, 48)
+    jx = jnp.zeros((2, 48))
+    with pytest.raises(ValueError, match="power of two"):
+        jsn.sort_chunks_pallas(jx, width=12, interpret=True)
+    with pytest.raises(ValueError, match="power of two"):
+        sn.sort_chunks_kernel(x, width=12, interpret=interpret)
+    with pytest.raises(ValueError, match="nest evenly"):
+        sn.sort_chunks_kernel(x, width=32, interpret=interpret)
+    with pytest.raises(ValueError, match="operands must match"):
+        jsn.merge_sorted_pallas(jx, jnp.zeros((2, 48), jnp.int32),
+                                interpret=True)
+    with pytest.raises(ValueError, match="operands must match"):
+        sn.merge_sorted_kernel(x, x.int(), interpret=interpret)
+    with pytest.raises(ValueError, match="power of two"):
+        sn.merge_sorted_kernel(x, x, width=3, interpret=interpret)
+
+
+def test_kernel_limits_are_named():
+    x = torch.zeros(2, 8192)
+    with pytest.raises(ValueError, match="at most 4096"):
+        sn.sort_chunks_kernel(x, width=8192)
+    with pytest.raises(ValueError, match="at most 2048"):
+        sn.merge_sorted_kernel(x, x, width=4096)
+    # the plain network has no such limit
+    assert sn.sort_chunks_kernel(x, width=8192, interpret=True).shape == (
+        2, 8192)
+
+
+def test_kernel_mode_on_cpu_tensors_raises():
+    x = torch.from_numpy(arr((2, 64), "float32"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.sort_chunks(x, width=8, mode="kernel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.merge_sorted(x, x, mode="kernel")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.sortnet_mergesort(x, mode="kernel")
+    # auto follows the tensors: the oracle for CPU tensors
+    assert torch.equal(ops.sort_chunks(x, width=8, mode="auto"),
+                       ref.sort_chunks(x, width=8))
+
+
+def test_sort_registrations_mirror_jax():
+    from repro.core import isa as jisa
+    from repro_torch.core import isa
+    for name in ("c2_sort", "c1_merge"):
+        got, want = isa.get(name), jisa.get(name)
+        assert got.spec == type(got.spec)(**vars(want.spec))
+        assert got.pipeline_depth == want.pipeline_depth
+        assert got.doc == want.doc
+        assert got.template is None and want.template is None
+
+
+def test_cuda_source_exports_the_bound_launchers():
+    src = (_cuda.CSRC / "sortnet.cu").read_text()
+    for name, argtypes in sn._SIGNATURES.items():
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes)
+    assert "repro_cuda_error_string" in src
+    assert "__shfl_xor_sync" in src and "__syncthreads" in src
+
+
+def test_library_name_follows_the_source_hash(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    p = _cuda.library_path("sortnet")
+    assert p.parent == tmp_path / "cuda" and p.name.startswith("sortnet_")
+    assert p == _cuda.library_path("sortnet")
+
+
+_CHILD = textwrap.dedent("""
+    import sys
+    import repro_torch.kernels
+    from repro_torch.kernels import _cuda, ops
+    assert ops.sortnet_mergesort and _cuda._LOADED == {}
+    bad = [m for m in ("jax", "repro", "triton") if m in sys.modules]
+    assert not bad, bad
+    print("ok")
+""")
+
+
+def test_import_loads_no_jax_triton_or_cuda_library():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == "ok"
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phase E at tiny size, against JAX
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_sortnet",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_phase_e_matches_jax(smoke):
+    v = smoke.sort_keys(0, 1 << 13, "cpu")
+    want = jmergesort(jnp.asarray(v.numpy())[None],
+                                  max_kernel_width=1024, mode="interpret")[0]
+    got = smoke.phase_e(v, "interpret")
+    same(got, want)
+    assert torch.equal(got, torch.sort(v).values)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke.phase_e(v, "kernel")
