@@ -7,9 +7,12 @@ Drives the port's main paths through the entry points a user calls —
 registered instructions, fused chains and the coalesced batch path, all
 launching the generated Triton kernel K1; the paper's two applications
 (§4.3), which launch the sorting networks K5/K6 (CUDA C++) and the
-carried scan K3 (Triton); and the Mamba2 SSD state scan, which launches
-K4 (Triton) — at full size (every array ≥ 4× the 50 MB L2: 2²⁶ 4-byte
-elements = 256 MiB). It builds every kernel from the checkout's sources,
+carried scan K3 (Triton); the Mamba2 SSD state scan, which launches K4
+(Triton) — at full size (every array ≥ 4× the 50 MB L2: 2²⁶ 4-byte
+elements = 256 MiB); and the LM server at Kimi-K2's published widths,
+whose MoE router launches K7 (top-k, CUDA C++) and K3 and whose prefill
+attention launches K8 (CUDA C++). It builds every kernel from the
+checkout's sources (the CUDA sources first, one nvcc each, in parallel),
 holds each against its plain PyTorch version and the torch oracles on
 the card, times it (CUDA events around each call while the device is
 held busy, so the time is device time; and host wall time per call),
@@ -35,6 +38,21 @@ Phases (inputs from numpy with a fixed seed):
      4096 → 64 heads), batch 4, seq 8192 at chunk 256 → 32 chunks:
      ops.chunk_scan_state(a, states, axis=1), states (4, 32, 64, 64, 128)
      float32 — one K4 launch
+  H  the LM server (repro_torch.launch.serve.generate) on Kimi-K2 1T-A32B
+     (src/repro/configs/kimi_k2_1t.py) at every published width — d_model
+     7168, 64 heads, 8 KV heads of 128, 384 experts top-8 of width 2048,
+     vocab 163840, bf16 — with 2 of its 61 layers (2 layers of weights are
+     67.9 GiB on the 80 GB card) and attn_impl="kernel" (the switch under
+     which prefill launches c6); random weights from a seeded CUDA
+     generator. 4 prompts of 1024 tokens, 16 greedy tokens each: K8 twice
+     (prefill, one per layer), K7 and K3 2 × 16 = 32 times each (prefill and
+     15 decode steps, one per layer). The path's own K7 inputs (layer 0 of
+     prefill and of the first decode step) and K8 inputs (layer 0 of
+     prefill) are recorded and held against the plain versions and the
+     oracles; K7 and K8 are also held off the path at the same shapes (a
+     K7 tile of ties; K8 causal at sq < sk; K8 in float32). The same
+     request through the plain path (isa.use("interpret")) is printed
+     beside it, not gated: near-tied router logits may flip an expert
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -59,16 +77,35 @@ Tolerances (fixed before any run):
   * state scan (G), against a float64 sequential recurrence:
     (⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps_f32·Σ_{j≤i}|bⱼ|, valid since
     0 < a ≤ 1 (one more rounding for the products);
+  * K7 (H): values and indices bit-exact against the plain network and
+    the stable-sort oracle; K3 in H (sums of 0/1 below 2²⁴) bit-exact;
+  * K8 (H) in float32, per row i against the plain version and the oracle:
+    (D·eps_f32·scale·max_j Σ_d|q_id·k_jd| + sk·eps_f32)·2·max|v| — the
+    logits' fp32 dot products, then the weighted sums, in other orders;
+    in bfloat16 that bound plus one bfloat16 ulp at |plain| + bound (both
+    round the fp32 result once; near zero, and where the random weights
+    make the logits large, the fp32 difference alone can exceed an ulp),
+    and the number of elements beyond one ulp is printed; on the path's
+    own inputs, also within one bfloat16 ulp of the plain version;
+  * H: every prefill and decode logit finite, the greedy tokens of two
+    runs on the same inputs bit-identical, the launch counts above;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
-    (padding the one-row operand to 8 rows would pass it).
+    (padding the one-row operand to 8 rows would pass it), and for H the
+    weights' bytes + 8 GB.
 
-Generated Triton sources go to ``build/repro_torch/``, the CUDA library
+Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
+operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
+the CUDA cores, 989 TFLOP/s for K8's products (bf16 on the tensor cores);
+each row names the one it used.
+
+Generated Triton sources go to ``build/repro_torch/``, the CUDA libraries
 to ``build/repro_torch/cuda/`` and Triton's cache to ``build/triton/``
 unless the environment names others.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -95,9 +132,18 @@ from repro_torch.core.isa import Instruction, OperandSpec  # noqa: E402
 from repro_torch.core.template import KernelTemplate  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import prefix_scan as ps  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import _cuda  # noqa: E402
+from repro_torch.kernels import flashattn as fa  # noqa: E402
 from repro_torch.kernels import sortnet as sn  # noqa: E402
+from repro_torch.kernels import topk as tk  # noqa: E402
+from repro_torch.kernels.flashattn import K8  # noqa: E402
 from repro_torch.kernels.prefix_scan import K3, K4  # noqa: E402
 from repro_torch.kernels.sortnet import K5, K6  # noqa: E402
+from repro_torch.kernels.topk import K7  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.params import DTYPES, param_specs, tree_items  # noqa: E402,E501
 
 SEED = 0
 N_STREAM = 1 << 26                 # 256 MiB per float32 array
@@ -105,7 +151,8 @@ N_ITEM, N_ITEMS = 1 << 22, 16      # phase C: 16 requests of 16 MiB
 ABSMAX_SHAPE = (4096, 16384)       # phase D
 SCALE, TRIAD_S = 2.5, 3.0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12             # H100 SXM, FP32 outside tensor cores
+OPS_PER_S = {"fp32": 67e12,        # H100 SXM, FP32 outside tensor cores
+             "bf16 tensor": 989e12}   # bf16 dense on the tensor cores
 N_SORT = 1 << 26                   # phase E: 256 MiB of int32 keys
 MAX_KERNEL_WIDTH = 4096            # the app's merge cut-over to torch.sort
 MERGE_W = 2048                     # phase E's K6 row: the widest merge
@@ -114,8 +161,29 @@ SSD_SHAPE = (4, 32, 64)            # phase G: (batch, chunks, heads)
 SSD_STATE = (64, 128)              # (headdim, state) of mamba2_1p3b
 EPS = float(torch.finfo(torch.float32).eps)
 K3_PLAIN_LIMIT = 0.05              # phase F: |K3 − plain|, see the docstring
+LM_ARCH = "kimi_k2_1t"             # phase H: the served model
+LM_LAYERS = 2                      # of 61 (see the docstring)
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 16
+LM_REDUCED = ["n_layers 61 → 2: two layers of bf16 weights are 67.9 GiB "
+              "on one 80 GB card",
+              "attn_impl chunked → kernel: the switch under which prefill "
+              "launches c6 (K8)"]
+
+
+def lm_config(n_layers: int = LM_LAYERS):
+    """Kimi-K2 at its published widths, cut in depth, attention on c6."""
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=n_layers,
+                               attn_impl="kernel")
+
+
+def weight_bytes(cfg) -> int:
+    return sum(math.prod(s.shape) * DTYPES[s.dtype or cfg.param_dtype].itemsize
+               for _, s in tree_items(param_specs(cfg)))
+
+
 PEAK_MEM_LIMIT = {"A": 3e9, "B": 3e9, "C": 3e9, "D": 3e9,
-                  "E": 6e9, "F": 4e9, "G": 4e9}
+                  "E": 6e9, "F": 4e9, "G": 4e9,
+                  "H": weight_bytes(lm_config()) + 8e9}
 KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
     "K1": ("triton", "src/repro_torch/core/fused_kernel.py",
            "src/repro/core/program.py:914"),
@@ -127,6 +195,10 @@ KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
            "src/repro/kernels/sortnet.py:139"),
     "K6": ("cuda", "src/repro_torch/kernels/csrc/sortnet.cu",
            "src/repro/kernels/sortnet.py:186"),
+    "K7": ("cuda", "src/repro_torch/kernels/csrc/topk.cu",
+           "src/repro/kernels/topk.py:50"),
+    "K8": ("cuda", "src/repro_torch/kernels/csrc/flashattn.cu",
+           "src/repro/kernels/flashattn.py:84"),
 }
 
 
@@ -250,6 +322,87 @@ def phase_g(a, states, mode):
     return ops.chunk_scan_state(a, states, axis=1, mode=mode)
 
 
+def serve_prompts(seed: int, cfg, batch: int, prompt_len: int, device):
+    """Uniform token ids from seeded numpy."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
+                            ).to(device)
+
+
+def phase_h(cfg, params, prompts, gen: int, mode):
+    """The LM server (launch/serve.py): prefill, cache growth, greedy
+    decode. Returns (tokens (B, gen), prefill s, decode s)."""
+    with isa.use(mode):
+        return serve.generate(cfg, params, prompts, gen)
+
+
+class Tap:
+    """Inside ``with``, ``module.name`` passes every call through and keeps
+    its (args, kwargs, result) in ``calls``; it launches nothing itself."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.module, self.name)
+
+        def tapped(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+
+        setattr(self.module, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def attn_bound(q, k, v, scale=None) -> torch.Tensor:
+    """(..., sq, 1): each row's fp32 summation bound for attention computed
+    in two orders, (D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps)·2·max|v|
+    (max|v| over the row's head); walked over the leading axis."""
+    d, sk = q.shape[-1], k.shape[-2]
+    scale = d ** -0.5 if scale is None else scale
+    out = []
+    for qb, kb, vb in zip(q, k, v):
+        qk = torch.matmul(qb.float().abs(), kb.float().abs().transpose(-1, -2))
+        vmax = vb.float().abs().amax(dim=(-2, -1), keepdim=True)
+        out.append((d * EPS * scale * qk.amax(-1, keepdim=True) + sk * EPS)
+                   * 2 * vmax)
+    return torch.stack(out)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(torch.finfo(torch.float32)
+                                                 .tiny)))
+    return torch.exp2(e - 7)
+
+
+def attn_misses(got, want, bound) -> tuple[int, float, int | None]:
+    """(elements outside the tolerance, max |Δ|, elements beyond one bf16
+    ulp of ``want`` — None for float32): float32 within ``bound``;
+    bfloat16 within ``bound`` plus one bf16 ulp at |want| + bound."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype != torch.bfloat16:
+        return int((err > bound).sum()), float(err.max()), None
+    w = want.float().abs()
+    return (int((err > bound + bf16_ulp(w + bound)).sum()), float(err.max()),
+            int((err > bf16_ulp(w)).sum()))
+
+
+def oracle_attention(q, k, v):
+    """ref.flash_attention (causal), one batch element at a time."""
+    return torch.cat([ref.flash_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                      for i in range(q.shape[0])])
+
+
+def routing_agreement(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Share of (token, expert) choices of ``a`` (t, k) that ``b`` makes."""
+    return float((a[:, :, None] == b[:, None, :]).any(-1).float().mean())
+
+
 def prefix_bound_misses(got, ref64, abs64, bc: int,
                         step: int = 1 << 22) -> tuple[int, float]:
     """(elements outside eps·(⌈log2 bc⌉·Σ_{j≤i}|xⱼ| + Σ_{e<i}|y_e| + |yᵢ|),
@@ -335,9 +488,12 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float, float]:
             wall, stream)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak: str = "fp32") -> tuple[float, str]:
+    """The least time for the bytes at HBM's rate and the operations at
+    the peak rate of their kind (``OPS_PER_S[peak]``), and which binds."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / OPS_PER_S[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -381,15 +537,17 @@ class Check:
 
 
 def entry(case, launches, err, timed, plain, n_bytes, n_ops, library,
-          kernel="K1", **extra):
+          kernel="K1", peak="fp32", **extra):
     """One ``kernels`` row; ``timed``/``plain``/``library`` come from
-    :func:`time_ms` (library may be None)."""
-    b, by = bound_ms(n_bytes, n_ops)
+    :func:`time_ms` (library may be None); ``peak`` names the operations'
+    rate in the bound."""
+    b, by = bound_ms(n_bytes, n_ops, peak)
     route, source, replaces = KERNELS[kernel]
     row = {"name": f"{kernel} {case}", "route": route, "source": source,
            "replaces": replaces, "launches": launches,
            "max_abs_err": err, "ms": timed[0], "plain_ms": plain[0],
-           "bound_ms": b, "bound_by": by,
+           "bound_ms": b, "bound_by": by, "ops_peak": peak,
+           "ops_per_s": OPS_PER_S[peak],
            "library_ms": None if library is None else library[0],
            "wall_ms": timed[1], "stream_ms": timed[2], "bytes": n_bytes,
            "gb_per_s": n_bytes / timed[0] / 1e6}
@@ -602,6 +760,11 @@ def run_phase_e(dev, check, rows):
 
 APP_KINDS = (("K5", "k5_sort"), ("K6", "k6_merge"), ("cat", "CatArray"),
              ("torch.sort", "sort"))   # kind: what its kernels' names hold
+LM_KINDS = (("K8", "k8_flash"), ("K7", "k7_topk"), ("K3", "k3_prefix"),
+            ("matmul", "gemm"), ("matmul", "nvjet"), ("matmul", "xmma"),
+            ("matmul", "cutlass"), ("index", "index"),
+            ("cat", "CatArray"), ("elementwise", "elementwise"),
+            ("reduce", "reduce"))
 
 
 def device_ms_by_kind(fn, kinds) -> dict | None:
@@ -698,6 +861,187 @@ def run_phase_g(dev, check, rows):
         call_bytes=8 * n, call_bound_ms=bound_ms(8 * n, 2 * n)[0]))
 
 
+def hold_attention(check, what, q, k, v, out, plain=None):
+    """K8's ``out`` against its plain version and the oracle (see the
+    tolerances); returns the row's error fields."""
+    plain = fa.flash_attention_plain(q, k, v) if plain is None else plain
+    bound = attn_bound(q, k, v)
+    res = {}
+    for name, want in (("plain", plain), ("oracle", oracle_attention(q, k, v))):
+        bad, err, over = attn_misses(out, want, bound)
+        check.true(f"{what} vs {name}: {bad} elements outside the bound",
+                   bad == 0)
+        res[f"max_abs_err_{name}"] = err
+        res[f"over_one_bf16_ulp_{name}"] = over
+        print(f"{what} vs {name}: max |Δ| {err:.3e}, {bad} outside the "
+              f"bound" + ("" if over is None else
+                          f", {over} beyond one bf16 ulp"), flush=True)
+    return res
+
+
+def hold_topk(check, what, x, k, vals, idx):
+    pv, pi = tk.topk_plain(x, k)
+    rv, ri = ref.topk(x, k)
+    for name, (wv, wi) in (("plain", (pv, pi)), ("oracle", (rv, ri))):
+        check.exact(f"{what} values vs {name}", vals, wv)
+        check.exact(f"{what} indices vs {name}", idx, wi)
+    return max_abs(vals.float(), pv.float())
+
+
+def run_phase_h(dev, check, rows):
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = lm_config()
+    n_l = cfg.n_layers
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 8), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve_prompts(SEED + 9, cfg, LM_BATCH, LM_PROMPT, dev)
+
+    # the main path: the server, with its launches counted
+    with Tap(tk, "topk_kernel") as t7, Tap(fa, "K8") as t8, \
+            Tap(serve, "sample") as ts:
+        K3.launches = K7.launches = K8.launches = 0
+        tokens, prefill_s, decode_s = phase_h(cfg, params, prompts, LM_GEN,
+                                              "auto")
+        launches = {"K3": K3.launches, "K7": K7.launches, "K8": K8.launches}
+    for name, want in (("K3", n_l * LM_GEN), ("K7", n_l * LM_GEN),
+                       ("K8", n_l)):
+        check.true(f"H: {launches[name]} {name} launches, want {want}",
+                   launches[name] == want)
+    check.true(f"H tokens: {tuple(tokens.shape)}, want ({LM_BATCH}, "
+               f"{LM_GEN}) ids below {cfg.vocab}",
+               tuple(tokens.shape) == (LM_BATCH, LM_GEN)
+               and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    logits = [args[0] for args, _, _ in ts.calls]
+    check.true(f"H: {len(logits)} logits sampled, want {LM_GEN}",
+               len(logits) == LM_GEN)
+    for i, lg in enumerate(logits):
+        check.shaped(f"H logits of step {i}", lg, (LM_BATCH, cfg.vocab))
+    cold_s = (prefill_s, decode_s)       # the first run builds and loads
+    again, prefill_s, decode_s = phase_h(cfg, params, prompts, LM_GEN, "auto")
+    check.exact("H greedy tokens, run 2 vs run 1", again, tokens)
+
+    # the kernels on the path's own inputs
+    (x7, k7), _, (v7, i7) = t7.calls[0]
+    err7 = hold_topk(check, "H K7 prefill", x7, k7, v7, i7)
+    (xd, kd), _, (vd, idd) = t7.calls[n_l]
+    hold_topk(check, "H K7 decode", xd, kd, vd, idd)
+    (q, kk, vv), kw8, o8 = t8.calls[0]
+    plain8 = fa.flash_attention_plain(q, kk, vv, causal=kw8["causal"])
+    res8 = hold_attention(check, "H K8 prefill layer 0", q, kk, vv, o8,
+                          plain8)
+    check.true(f"H K8 prefill layer 0: {res8['over_one_bf16_ulp_plain']} "
+               f"elements beyond one bf16 ulp of the plain version",
+               res8["over_one_bf16_ulp_plain"] == 0)
+    x3 = torch.nn.functional.one_hot(i7.reshape(-1).long(),
+                                     cfg.n_experts).float().T.contiguous()
+    got3 = ps.prefix_sum_kernel(x3)
+    plain3 = ps.prefix_sum_kernel(x3, interpret=True)
+    check.exact("H K3 vs plain", got3, plain3)
+    check.exact("H K3 vs cumsum", got3, torch.cumsum(x3, 1))
+
+    # the same request through the plain path (printed, not gated)
+    with Tap(tk, "topk_kernel") as p7, Tap(serve, "sample") as psamp:
+        plain_tokens = phase_h(cfg, params, prompts, LM_GEN, "interpret")[0]
+    plain_path = {
+        "max_abs_logit_diff_prefill": max_abs(logits[0],
+                                              psamp.calls[0][0][0]),
+        "routing_agreement_prefill": float(np.mean([
+            routing_agreement(t7.calls[i][2][1], p7.calls[i][2][1])
+            for i in range(n_l)])),
+        "tokens_agree": bool(torch.equal(plain_tokens, tokens))}
+    print(f"H plain path (not gated): {json.dumps(plain_path)}", flush=True)
+    del p7, psamp, plain_tokens
+
+    # serving times: wall from generate, device from CUDA events
+    pre = time_ms(lambda: M.prefill(cfg, params, {"tokens": prompts}),
+                  reps=3, warmup=1)
+    lg, cache = M.prefill(cfg, params, {"tokens": prompts})
+    cache = M.grow_cache(cfg, cache, LM_PROMPT, LM_PROMPT + LM_GEN)
+    tok = serve.sample(lg, None, 0.0)
+    dec = time_ms(lambda: M.decode_step(cfg, params, cache, tok, LM_PROMPT),
+                  reps=5, warmup=1)
+    by_kind = {
+        "prefill": device_ms_by_kind(
+            lambda: M.prefill(cfg, params, {"tokens": prompts}), LM_KINDS),
+        "decode_step": device_ms_by_kind(
+            lambda: M.decode_step(cfg, params, cache, tok, LM_PROMPT),
+            LM_KINDS)}
+    del lg, cache
+    summary = {
+        "phase": "H", "model": LM_ARCH, "reduced": LM_REDUCED,
+        "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+        "weight_bytes": weight_bytes(cfg), "init_s": init_s,
+        "prefill_wall_ms": prefill_s * 1e3,
+        "decode_wall_ms_per_token": decode_s / (LM_GEN - 1) * 1e3,
+        "cold_prefill_wall_ms": cold_s[0] * 1e3,
+        "cold_decode_wall_ms_per_token": cold_s[1] / (LM_GEN - 1) * 1e3,
+        "prefill_device_ms": pre[0], "decode_device_ms_per_token": dec[0],
+        "device_ms_by_kind": by_kind,
+        "device_idle_share": {
+            "prefill": None if by_kind["prefill"] is None else
+            1 - sum(by_kind["prefill"].values()) / (prefill_s * 1e3),
+            "decode": None if by_kind["decode_step"] is None else
+            1 - sum(by_kind["decode_step"].values())
+            / (decode_s / (LM_GEN - 1) * 1e3)},
+        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+        "decode_tokens_per_s": LM_BATCH * (LM_GEN - 1) / decode_s,
+        "launches": launches, "plain_path": plain_path,
+        "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    print(json.dumps({"serve": summary}), flush=True)
+
+    # kernel rows at the path's shapes
+    rows.append(entry(
+        f"H topk {tuple(x7.shape)} float32 k={k7} (router, prefill)",
+        launches["K7"], err7, time_ms(lambda: tk.K7(x7, k7)),
+        time_ms(lambda: tk.topk_plain(x7, k7), reps=5),
+        x7.numel() * 4 + x7.shape[0] * k7 * 8,
+        sn.n_cas_layers(x7.shape[1]) * x7.numel(),
+        time_ms(lambda: torch.topk(x7, k7)), kernel="K7"))
+    bh, sq, d, sk = q.shape[0] * q.shape[1], q.shape[2], q.shape[3], kk.shape[2]
+    pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))   # causal
+    rows.append(entry(
+        f"H flash_attention {tuple(q.shape)} bfloat16 causal (prefill)",
+        launches["K8"], res8["max_abs_err_plain"],
+        time_ms(lambda: fa.K8(q, kk, vv)),
+        time_ms(lambda: fa.flash_attention_plain(q, kk, vv), reps=5),
+        4 * q.numel() * q.element_size(), 4 * bh * pairs * d,
+        time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True)),
+        kernel="K8", peak="bf16 tensor", **res8))
+    rows.append(entry(
+        f"H prefix_sum {tuple(x3.shape)} float32 (router slots, prefill)",
+        launches["K3"], max_abs(got3, plain3),
+        time_ms(lambda: ps.prefix_sum_kernel(x3)),
+        time_ms(lambda: ps.prefix_sum_kernel(x3, interpret=True), reps=5),
+        8 * x3.numel(), x3.numel(), time_ms(lambda: torch.cumsum(x3, 1)),
+        kernel="K3", block=list(ps.block_shape(*x3.shape))))
+    del params, t7, t8, ts, q, kk, vv, o8, plain8
+    torch.cuda.empty_cache()
+
+    # off the path, at the same shapes
+    rng = np.random.default_rng(SEED + 10)
+    ties = torch.from_numpy(rng.integers(0, 4, x7.shape).astype(np.float32))
+    ties[0] = 0.0                                  # one row of one value
+    for case, x in (("float32 ties", ties.to(dev)),
+                    ("bfloat16", x7.to(torch.bfloat16)),
+                    ("int32", torch.from_numpy(rng.integers(
+                        -10_000, 10_000, x7.shape, dtype=np.int32)).to(dev))):
+        hold_topk(check, f"H K7 {case}", x, k7, *tk.K7(x, k7))
+    shape_q = (LM_BATCH, cfg.n_heads, LM_PROMPT, cfg.head_dim)
+    for case, sq_, dt in (("causal sq < sk bfloat16", LM_PROMPT // 2,
+                           torch.bfloat16),
+                          ("float32", LM_PROMPT, torch.float32)):
+        q, kk, vv = (torch.from_numpy(rng.standard_normal(
+            s, dtype=np.float32)).to(dev, dt)
+            for s in (shape_q[:2] + (sq_,) + shape_q[3:], shape_q, shape_q))
+        hold_attention(check, f"H K8 {case}", q, kk, vv, fa.K8(q, kk, vv))
+        del q, kk, vv
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -714,10 +1058,13 @@ def main() -> int:
     failed = []
     peaks = {}
     t_start = time.perf_counter()
+    _cuda.build_all()           # every CUDA source, one nvcc each, at once
+    print(f"nvcc: {time.perf_counter() - t_start:.1f} s", file=sys.stderr,
+          flush=True)
     for name, phase in (("A", run_phase_a), ("B", run_phase_b),
                         ("C", run_phase_c), ("D", run_phase_d),
                         ("E", run_phase_e), ("F", run_phase_f),
-                        ("G", run_phase_g)):
+                        ("G", run_phase_g), ("H", run_phase_h)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

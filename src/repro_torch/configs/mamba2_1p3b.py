@@ -1,0 +1,15 @@
+"""Mamba2-1.3B [arXiv:2405.21060] — attention-free SSD (state-space
+duality); the paper's carried-prefix-scan instruction (c4_chunkscan) IS
+its inter-chunk recurrence."""
+from .base import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="mamba2-1.3b", family="ssm",
+        n_layers=48, d_model=2048, n_heads=0, n_kv_heads=0,
+        d_ff=0, vocab=50280,
+        ssm_state=128, ssm_headdim=64, ssm_expand=2, ssm_chunk=256,
+        tie_embeddings=True,
+        optimizer="adamw",
+    )

@@ -117,6 +117,14 @@ def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
 
 
+def pad_vocab(vocab: int, mult: int = 256) -> int:
+    """Pad embedding-table rows so the vocab dim shards over any axis ≤ mult.
+
+    (50280 → 50432, 32001 → 32256; logits over padding are masked.)
+    """
+    return round_up(vocab, mult)
+
+
 # -- shared operand shape normalisation --------------------------------------
 # One entry path for every streaming op and fused program: kernels see 2D
 # (rows, cols) tiles whose geometry satisfies the block constraints; callers

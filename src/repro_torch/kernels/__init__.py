@@ -2,5 +2,7 @@
 #   stream_copy — c0 streaming family (memcpy / STREAM), K1 stage bodies
 #   prefix_scan — c3_prefixsum / c4_chunkscan carried scans, K3/K4 (Triton)
 #   sortnet     — c2_sort / c1_merge bitonic networks, K5/K6 (CUDA C++)
+#   topk        — c5_topk key/payload network (MoE router), K7 (CUDA C++)
+#   flashattn   — c6_flashattn blockwise online-softmax attention, K8 (CUDA C++)
 # ops.py registers them in the ISA; ref.py holds the torch oracles.
 from . import ops, ref  # noqa: F401  (importing ops registers the ISA)

@@ -6,7 +6,8 @@ with ``nvcc`` into a shared library, which is loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <build>/cuda/<stem>_<hash>.so csrc/<stem>.cu
 
-The library is built at its first use in a process, under the build
+The library is built at its first use in a process (or beforehand, all
+sources at once, by :func:`build_all`), under the build
 directory of ``core/fused_kernel.build_dir()`` (``build/repro_torch/``
 in the checkout unless ``REPRO_TORCH_BUILD_DIR`` names another). Its
 name carries a hash of the source and the flags, so an edited source is
@@ -52,27 +53,40 @@ def nvcc() -> str:
 
 def library_path(stem: str) -> Path:
     """Where the library of ``csrc/<stem>.cu`` is built: named by the hash
-    of its source and the build flags."""
+    of its source, the shared headers ``csrc/*.cuh`` and the build flags."""
     h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / "cuda" / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(stem: str) -> Path:
-    """Compile ``csrc/<stem>.cu`` unless its library already exists."""
-    out = library_path(stem)
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / f"{stem}.cu")],
-                          capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on csrc/{stem}.cu:\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, out)           # atomic: concurrent builds agree
-    return out
+def build_all(stems=None) -> list[Path]:
+    """Compile the libraries of ``stems`` (default: every ``csrc/*.cu``)
+    that do not exist yet, one ``nvcc`` per source, all started together.
+    Raises if any build fails."""
+    if stems is None:
+        stems = sorted(p.stem for p in CSRC.glob("*.cu"))
+    outs = [library_path(stem) for stem in stems]
+    procs = []
+    for stem, out in zip(stems, outs):
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        procs.append((stem, out, tmp, subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for stem, out, tmp, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed on csrc/{stem}.cu:\n{err[-4000:]}")
+        else:
+            os.replace(tmp, out)     # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(stem: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
@@ -81,7 +95,7 @@ def load(stem: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     launcher returns a CUDA error code (``int``)."""
     lib = _LOADED.get(stem)
     if lib is None:
-        lib = ctypes.CDLL(str(build(stem)))
+        lib = ctypes.CDLL(str(build_all([stem])[0]))
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)

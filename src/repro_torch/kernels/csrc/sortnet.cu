@@ -33,37 +33,9 @@
 //  * bf16 keys are compared as float (__bfloat162float is exact), so a
 //    tile holds 4-byte keys for every type: 16 KiB of shared memory.
 //  * Offsets are 64-bit.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bitonic_tile.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int TILE = 4096;                 // keys per block = largest chunk
-constexpr int PER_THREAD = TILE / THREADS;
-
-template <typename T>
-struct Key {                               // storage type -> compare type
-  using C = T;
-  static __device__ __forceinline__ C in(T v) { return v; }
-  static __device__ __forceinline__ T out(C v) { return v; }
-};
-
-template <>
-struct Key<__nv_bfloat16> {
-  using C = float;
-  static __device__ __forceinline__ C in(__nv_bfloat16 v) {
-    return __bfloat162float(v);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 out(C v) {
-    return __float2bfloat16(v);            // exact: v came from a bf16
-  }
-};
-
-__device__ __forceinline__ int tile_index(int e) {
-  return (((threadIdx.x >> 5) * PER_THREAD + e) << 5) | (threadIdx.x & 31);
-}
 
 // One lane of one compare-and-swap layer (_cas_layer, keys only).
 // lower: this lane's bit j is clear; up: the pair is ordered ascending
@@ -173,12 +145,6 @@ k6_merge_kernel(const T* __restrict__ a, const T* __restrict__ b,
         hi[(c << log2_w) + m - w] = K::out(v[e]);
     }
   }
-}
-
-int log2_of(int w) {
-  int l = 0;
-  while ((1 << l) < w) ++l;
-  return l;
 }
 
 template <typename T>

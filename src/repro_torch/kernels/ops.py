@@ -8,13 +8,12 @@ shape normalisation and dispatch-mode plumbing.
 Dispatch (repro_torch.core.isa.use):
     'ref'       — base core, no SIMD unit (paper's software baselines)
     'kernel'    — the instruction's GPU kernel on CUDA tensors (K1 for the
-                  c0 family, K3–K6 for c1–c4)
+                  c0 family, K3–K6 for c1–c4, K7 for c5, K8 for c6)
     'interpret' — the kernel's plain PyTorch version, any device
     'auto'      — kernel for CUDA tensors, ref for CPU tensors
 
-Ported so far: c0–c4 and the mergesort application; c5 (top-k) and c6
-(attention) arrive with their kernels. The kernels take ragged rows as
-they come: the reference's padding of rows to 8 (``_pad_rows``) is a
+Ported: c0–c6 and the mergesort application. The kernels take ragged
+rows as they come: the reference's padding of rows to 8 (``_pad_rows``) is a
 TPU sublane rule and is not carried over (the results are the same,
 since the reference slices the padding away).
 """
@@ -27,10 +26,12 @@ from repro_torch.core.isa import Instruction, OperandSpec
 from repro_torch.core.stream import StreamConfig
 from repro_torch.core.stream import as_rows as _as_rows
 
+from . import flashattn as _fa
 from . import prefix_scan as _ps
 from . import ref
 from . import sortnet as _sn
 from . import stream_copy as _sc
+from . import topk as _tk
 
 
 # ---------------------------------------------------------------------------
@@ -167,6 +168,75 @@ isa.register(Instruction(
 
 def chunk_scan_state(a, b, axis: int = 1, mode=None):
     return isa.call("c4_statescan", a, b, axis=axis, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# c5_topk
+# ---------------------------------------------------------------------------
+
+def _topk_kernel(x, k: int, *, interpret: bool = False):
+    x2d, lead = _as_rows(x, x.shape[-1])
+    n = x2d.shape[1]
+    npow = 1 << (n - 1).bit_length()
+    if npow != n:       # pad with the dtype's minimum (never -inf)
+        fill = (torch.finfo(x.dtype).min if x.dtype.is_floating_point
+                else torch.iinfo(x.dtype).min)
+        x2d = torch.cat([x2d, x2d.new_full((x2d.shape[0], npow - n), fill)],
+                        dim=1)
+    vals, idx = _tk.topk_kernel(x2d, k, interpret=interpret)
+    return (vals.reshape(*lead, k), idx.reshape(*lead, k))
+
+
+isa.register(Instruction(
+    name="c5_topk",
+    spec=OperandSpec(itype="I'", scalar_in=1, vector_in=1, vector_out=2),
+    ref=ref.topk,
+    kernel=_topk_kernel,
+    pipeline_depth=8,
+    doc="descending key/payload sort → top-k values + indices (MoE router)",
+))
+
+
+def topk(x, k: int, mode=None):
+    return isa.call("c5_topk", x, k, mode=mode)
+
+
+# ---------------------------------------------------------------------------
+# c6_flashattn
+# ---------------------------------------------------------------------------
+
+def _flashattn_kernel(q, k, v, causal=True, scale=None, *,
+                      interpret: bool = False):
+    """q, k, v: (b, h, s, d). K8 tiles by its own 64 rows; the plain
+    version walks the reference's blocks."""
+    if not interpret:
+        return _fa.K8(q, k, v, causal=causal, scale=scale)
+    s = q.shape[2]
+    block = 128 if s % 128 == 0 else (64 if s % 64 == 0 else s)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     block_q=block, block_k=block)
+
+
+isa.register(Instruction(
+    name="c6_flashattn",
+    spec=OperandSpec(itype="I'", vector_in=2, vector_out=1),  # (q, kv) fused pair
+    ref=ref.flash_attention,
+    kernel=_flashattn_kernel,
+    pipeline_depth=2,
+    doc="fused blockwise attention with carried (m, l) state",
+))
+
+
+def flash_attention(q, k, v, causal=True, scale=None, mode=None):
+    # The ISA operand budget counts register *names*; K and V stream from the
+    # same base address pair (S'-style), so they count as one vector source —
+    # hence manual dispatch here rather than isa.call's 2-operand check.
+    # 'auto' follows the tensors, as isa.resolve_auto does.
+    mode = isa.resolve_auto(mode or isa.registry.mode, (q, k, v))
+    if mode == "ref":
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+    return _flashattn_kernel(q, k, v, causal=causal, scale=scale,
+                             interpret=(mode == "interpret"))
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,7 @@
 
 These are the "base RV32IM core runs it in software" implementations
 from the paper's evaluation (§4.2/§4.3 baselines): semantically
-identical to the GPU kernels, written with stock torch ops only. The
-oracles of the instructions not ported yet (top-k, attention) arrive
-with their kernels.
+identical to the GPU kernels, written with stock torch ops only.
 
 torch has no public associative scan: where the reference's oracles
 call ``jax.lax.associative_scan``, these run a log-step doubling
@@ -118,3 +116,35 @@ def stream_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def stream_triad(a: torch.Tensor, b: torch.Tensor, s) -> torch.Tensor:
     return a + s * b
+
+
+# -- c5_topk (router top-k via sorting network) ------------------------------
+
+def topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis: (values descending, int32 indices), equal
+    values in ascending index order as ``lax.top_k`` orders them
+    (``torch.topk`` does not promise an order for ties; a stable sort
+    does)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+# -- c6_flashattn (fused attention "instruction") ----------------------------
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Oracle attention. q,k,v: (batch, heads, seq, head_dim); GQA is
+    handled by the caller (kv heads repeated before the call). The causal
+    mask is aligned bottom-right (``tril(k=sk-sq)``)."""
+    *_, sq, d = q.shape
+    sk = k.shape[-2]
+    if scale is None:
+        scale = d ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        mask = torch.ones((sq, sk), dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        logits = logits.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)

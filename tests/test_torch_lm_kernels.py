@@ -1,0 +1,155 @@
+"""K7 (top-k) and K8 (flash attention) against their plain PyTorch
+versions, and the LM server's kernel path against its plain path, on the
+card.
+
+Both kernels are CUDA C++ (built with nvcc at first use) with no CPU
+mode, so every test here is marked ``gpu`` and skips without a CUDA
+device. Run them on an H100 with
+``pytest -m gpu tests/test_torch_lm_kernels.py``.
+
+Tolerances: K7 bit-exact (values and indices; the kernel takes the same
+selects as the plain network, ties in ascending index order). K8 per
+row within the fp32 summation bound of two orders,
+``(D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps)·2·max|v|``, and in
+bfloat16 that bound plus one bfloat16 ulp (chip_smoke.attn_misses). The
+server on reduced Kimi-K2 (float32): logits within 1e-4 of their largest
+|value| and equal greedy tokens.
+"""
+import dataclasses
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.kernels  # noqa: F401 — registers the ISA
+from repro_torch.configs import get_config
+from repro_torch.core import isa
+from repro_torch.kernels import flashattn as fa
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels import topk as tk
+from repro_torch.kernels.prefix_scan import K3
+from repro_torch.launch import serve
+from repro_torch.models import model as M
+
+pytestmark = pytest.mark.gpu
+
+ROOT = Path(__file__).resolve().parents[1]
+DTYPES = {"float32": torch.float32, "int32": torch.int32,
+          "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K7 and K8 are CUDA kernels with "
+                    "no CPU mode (their plain versions are tested in "
+                    "test_torch_topk / test_torch_flashattn)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_lm",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def keys(shape, dtype, seed, dev, ties=False):
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32 or ties:
+        hi = 4 if ties else 10_000
+        x = torch.from_numpy(rng.integers(-hi, hi, shape).astype(np.int32))
+        return x.to(dev, dtype)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                            ).to(dev, dtype)
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("n", [8, 64, 512, 4096])
+def test_k7_matches_plain_and_oracle(cuda, n, dtype, ties):
+    x = keys((37, n), DTYPES[dtype], n, cuda, ties)
+    for k in sorted({1, 8, n}):
+        vals, idx = tk.topk_kernel(x, k)
+        for want in (tk.topk_plain(x, k), ref.topk(x, k)):
+            assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+        assert idx.dtype == torch.int32
+
+
+def test_k7_router_shape_through_the_isa(cuda):
+    x = keys((4096, 384), torch.float32, 0, cuda)
+    tk.K7.launches = 0
+    v, i = ops.topk(x, 8)                       # auto → K7 on CUDA
+    assert tk.K7.launches == 1
+    pv, pi = ops.topk(x, 8, mode="interpret")
+    assert torch.equal(v, pv) and torch.equal(i, pi)
+
+
+def test_k7_rejects_what_it_does_not_take(cuda):
+    with pytest.raises(ValueError, match="at most 4096"):
+        tk.topk_kernel(torch.zeros(2, 8192, device=cuda), 8)
+    with pytest.raises(ValueError, match="k=9"):
+        tk.topk_kernel(torch.zeros(2, 8, device=cuda), 9)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk", [(256, 256), (100, 230), (64, 512)])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_k8_within_the_summation_bound(cuda, smoke, d, causal, sq, sk,
+                                       dtype):
+    rng = np.random.default_rng(d + sq)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, s, d),
+                                                    dtype=np.float32))
+               .to(cuda, DTYPES[dtype]) for s in (sq, sk, sk))
+    got = fa.K8(q, k, v, causal=causal)
+    assert got.dtype == q.dtype
+    bound = smoke.attn_bound(q, k, v)
+    for want in (fa.flash_attention_plain(q, k, v, causal=causal),
+                 ref.flash_attention(q, k, v, causal=causal)):
+        assert smoke.attn_misses(got, want, bound)[0] == 0
+
+
+def test_k8_reads_strided_heads_in_place(cuda):
+    # the model's (B, S, H, D) activations, viewed as (B, H, S, D)
+    x = keys((2, 200, 6, 3, 64), torch.bfloat16, 1, cuda)
+    q, k, v = (x[:, :, :, i].transpose(1, 2) for i in range(3))
+    got = fa.K8(q, k, v)
+    assert got.transpose(1, 2).is_contiguous()
+    want = fa.K8(*(t.contiguous() for t in (q, k, v)))
+    assert torch.equal(got, want)
+
+
+def test_k8_checks_on_card(cuda):
+    q = torch.zeros(1, 1, 8, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.K8(q, q, q)
+    q = torch.zeros(1, 1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="no visible key"):
+        fa.K8(q, q[:, :, :4], q[:, :, :4])
+
+
+def test_generate_kernel_path_against_plain_path(cuda):
+    cfg = dataclasses.replace(get_config("kimi_k2_1t").reduced(),
+                              n_experts=384, top_k=8, attn_impl="kernel",
+                              capacity_factor=8.0)
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                           cuda)
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (4, 128))).to(cuda)
+    K3.launches = tk.K7.launches = fa.K8.launches = 0
+    with isa.use("auto"):
+        got = serve.generate(cfg, params, prompts, 8)[0]
+        logits, _ = M.prefill(cfg, params, {"tokens": prompts})
+    assert (K3.launches, tk.K7.launches, fa.K8.launches) == (18, 18, 4)
+    with isa.use("interpret"):
+        want = serve.generate(cfg, params, prompts, 8)[0]
+        plain, _ = M.prefill(cfg, params, {"tokens": prompts})
+    assert torch.equal(got, want)
+    err = float((logits - plain).abs().max() / plain.abs().max())
+    assert err <= 1e-4, err
