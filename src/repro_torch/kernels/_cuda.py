@@ -4,7 +4,8 @@ Each source ``csrc/<stem>.cu`` exposes a plain C interface and is built
 with ``nvcc`` into a shared library, which is loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <build>/cuda/<stem>_<hash>.so csrc/<stem>.cu
+         -Xcompiler -fPIC -Xptxas -v -o <build>/cuda/<stem>_<hash>.so \\
+         csrc/<stem>.cu
 
 The library is built at its first use in a process (or beforehand, all
 sources at once, by :func:`build_all`), under the build
@@ -13,6 +14,9 @@ in the checkout unless ``REPRO_TORCH_BUILD_DIR`` names another). Its
 name carries a hash of the source and the flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. ``nvcc`` is found on
 ``PATH`` or under ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``).
+``-Xptxas -v`` makes ptxas report each kernel's registers, shared memory
+and spills; :data:`BUILD_LOG` keeps that report and the build's seconds
+for every source built in this process.
 
 Every exported launcher returns ``cudaGetLastError()`` as an ``int``;
 :func:`check` raises on anything but 0. Nothing here falls back to a
@@ -23,20 +27,25 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 from repro_torch.core.fused_kernel import build_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 # libraries loaded in this process, by source stem
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: sources built in this process: stem → {"seconds", "ptxas" (its report)}
+BUILD_LOG: dict[str, dict] = {}
 
 
 def nvcc() -> str:
@@ -68,25 +77,51 @@ def build_all(stems=None) -> list[Path]:
     if stems is None:
         stems = sorted(p.stem for p in CSRC.glob("*.cu"))
     outs = [library_path(stem) for stem in stems]
-    procs = []
-    for stem, out in zip(stems, outs):
-        if out.exists():
-            continue
+    todo = [(stem, out) for stem, out in zip(stems, outs) if not out.exists()]
+
+    def build(stem: str, out: Path):
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        procs.append((stem, out, tmp, subprocess.Popen(
+        t0 = time.perf_counter()
+        proc = subprocess.run(
             [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for stem, out, tmp, proc in procs:
-        _, err = proc.communicate()
+            capture_output=True, text=True)
         if proc.returncode:
-            failed.append(f"nvcc failed on csrc/{stem}.cu:\n{err[-4000:]}")
-        else:
-            os.replace(tmp, out)     # atomic: concurrent builds agree
+            return f"nvcc failed on csrc/{stem}.cu:\n{proc.stderr[-4000:]}"
+        os.replace(tmp, out)         # atomic: concurrent builds agree
+        BUILD_LOG[stem] = {"seconds": time.perf_counter() - t0,
+                           "ptxas": proc.stdout + proc.stderr}
+        return None
+
+    with ThreadPoolExecutor(max(len(todo), 1)) as pool:
+        failed = [f for f in pool.map(lambda a: build(*a), todo) if f]
     if failed:
         raise RuntimeError("\n".join(failed))
     return outs
+
+
+def ptxas_usage(report: str) -> dict[str, dict]:
+    """Per kernel (mangled name): registers, shared-memory bytes and spill
+    stores from an ``-Xptxas -v`` report."""
+    usage, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {"registers": None, "smem_bytes": 0,
+                           "spill_stores": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            usage[name]["spill_stores"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            usage[name]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    return usage
 
 
 def load(stem: str, signatures: dict[str, tuple]) -> ctypes.CDLL:

@@ -6,13 +6,20 @@ K/V blocks stream past while the accumulator stays on chip. One fused
 kernel replaces the einsum → mask → softmax → einsum sequence.
 
 The kernel is CUDA C++ (``csrc/flashattn.cu``, built by ``_cuda.py``):
-**K8** (:data:`K8`, replaces ``flash_attention_pallas``) runs one block
-per (batch·head, :data:`BLOCK`-row q tile) and loops over k/v tiles of
-:data:`BLOCK` rows, skipping those wholly above the causal diagonal. It
-takes q, k, v as (B, H, S, D) with any (batch, head, seq) strides and a
-unit head-dim stride, so the model's (B, S, H, D) activations are read
-through a transposed view without a copy, and writes its output into a
-(B, S, H, D) buffer returned as the (B, H, S, D) view.
+**K8** (:data:`K8`, replaces ``flash_attention_pallas``). It takes q, k, v
+as (B, H, S, D) with any (batch, head, seq) strides and a unit head-dim
+stride, so the model's (B, S, H, D) activations are read through a
+transposed view without a copy, and writes its output into a (B, S, H, D)
+buffer returned as the (B, H, S, D) view. In bfloat16 (the LM's path) it
+runs on the tensor cores: one block per (batch·head, 128-row q tile), q
+and 128-row k/v tiles loaded by TMA, ``wgmma`` for q·kᵀ and for p·v with p
+split into three bf16 terms (p1 + p2 + p3, error ≤ 2⁻²⁴·p). TMA needs
+16-byte-aligned bases and strides: an operand that has neither is copied
+once with ``.contiguous()`` inside K8 (counted in ``K8.aligned_copies``).
+In float32 it computes the products as fp32 FMAs (the tensor cores would
+round fp32 to TF32), one block per :data:`BLOCK`-row q tile, looping over
+k/v tiles of :data:`BLOCK` rows. Both skip k/v tiles wholly above the
+causal diagonal.
 
 The causal mask is aligned bottom-right (query i sees key j iff
 j <= i + sk - sq), as ``ref.flash_attention`` aligns it; the TPU kernel
@@ -38,6 +45,7 @@ from . import _cuda
 
 NEG_INF = -1e30
 BLOCK = 64                    # q rows of a K8 block, k/v rows of its tiles
+#                               (float32; the plain version's blocks)
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _SIGNATURES = {
@@ -109,11 +117,38 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(-1, nq * bq, d)[:, :sq].reshape(*lead, sq, d)
 
 
+def _strides(t: torch.Tensor) -> list[int]:
+    """t's (batch, head, seq) strides, a size-1 dimension's replaced by
+    the packed stride there (never read, but a TMA map must hold it)."""
+    b, h, s, d = t.shape
+    sb, sh, ss = t.stride()[:3]
+    ss = ss if s > 1 else d
+    sh = sh if h > 1 else s * ss
+    sb = sb if b > 1 else h * sh
+    return [sb, sh, ss]
+
+
+def tma_aligned(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` as it is: a 16-byte-aligned base and
+    (batch, head, seq) strides of whole 16-byte units, none of them 0."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s > 0 and s * size % 16 == 0 for s in _strides(t)))
+
+
 class FlashAttentionKernel:
-    """The K8 wrapper. ``launches`` counts kernel launches, and only those."""
+    """The K8 wrapper. ``launches`` counts kernel launches, and only those;
+    ``aligned_copies`` counts the operands it copied for TMA."""
 
     def __init__(self):
         self.launches = 0
+        self.aligned_copies = 0
+
+    def _tma_operand(self, t: torch.Tensor) -> torch.Tensor:
+        if tma_aligned(t):
+            return t
+        self.aligned_copies += 1      # a fresh, packed, aligned buffer
+        return t.clone(memory_format=torch.contiguous_format)
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  causal: bool = True,
@@ -133,6 +168,8 @@ class FlashAttentionKernel:
         check_cuda([q, k, v], "K8")
         q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
                    for t in (q, k, v))
+        if q.dtype == torch.bfloat16:
+            q, k, v = (self._tma_operand(t) for t in (q, k, v))
         # (B, S, H, D) storage: the caller's transpose back is free
         o = torch.empty((b, sq, h, d), dtype=q.dtype,
                         device=q.device).transpose(1, 2)
@@ -141,7 +178,7 @@ class FlashAttentionKernel:
         if scale is None:
             scale = d ** -0.5
         lib = _cuda.load("flashattn", _SIGNATURES)
-        strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+        strides = [s for t in (q, k, v, o) for s in _strides(t)]
         with torch.cuda.device(q.device):
             err = lib.k8_flash_attention(
                 code, d, q.data_ptr(), k.data_ptr(), v.data_ptr(),

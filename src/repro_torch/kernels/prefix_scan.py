@@ -7,29 +7,32 @@ arbitrarily long stream without blocking. `c4_chunkscan` generalises the
 carry from (+) to the affine map y = a·y_prev + b: Mamba2-SSD's
 inter-chunk state recurrence.
 
-The kernels are Triton, one program per block of ``br`` rows that walks
-its row's column blocks of ``bc`` in order with the carry in registers,
-set to 0 before the loop (the TPU kernel's carry in VMEM scratch across a
-sequential grid axis, reset at step 0, becomes that loop):
+**K3** (:data:`K3`, replaces ``prefix_sum_pallas``) is CUDA C++
+(``csrc/prefix_scan.cu``, built by ``_cuda.py``): a single-pass chained
+scan with decoupled look-back. A row is cut into tiles of 4096 columns,
+scanned in parallel by blocks that take their tile from a global counter;
+each tile publishes its aggregate, looks back over its predecessors' state
+until it meets an inclusive prefix, and publishes its own. So a one-row
+operand spreads over every SM. An operand with rows enough to fill the
+card (at least twice the SMs, as the MoE router's 384) takes the same
+kernel's walk instead: one block a row, the next tile's loads in flight
+while the current one is scanned. Both sum in an order of their own:
+:func:`k3_bound_constants` gives the constants of its first-order error
+bound.
 
-* **K3** (:data:`K3`, replaces ``prefix_sum_pallas``): per block
-  ``tl.cumsum(tile) + carry``; the carry is the block's last column.
-* **K4** (:data:`K4`, replaces ``chunk_scan_pallas``): per block
-  ``tl.associative_scan`` of (a, b) under the affine combine, then
-  ``y = A·carry + B``; the carry is y's last column. The output and the
-  carry are ``promote(a, b)``.
+**K4** (:data:`K4`, replaces ``chunk_scan_pallas``) is Triton, one
+program per block of ``br`` rows that walks its row's column blocks of
+``bc`` in order with the carry in registers, set to 0 before the loop
+(the TPU kernel's carry in VMEM scratch across a sequential grid axis,
+reset at step 0, becomes that loop): per block ``tl.associative_scan`` of
+(a, b) under the affine combine, then ``y = A·carry + B``; the carry is
+y's last column. The output and the carry are ``promote(a, b)``.
 
 What bounds them on the H100: device-memory bytes (each input read once,
 the output written once; a scan does one or two operations per element).
-A block's loads do not depend on the carry, so Triton's software
-pipeline keeps the next blocks' loads in flight while the carry chain
-runs. Ragged rows and columns are masked (a load past the edge reads the
+Ragged rows and columns are masked (a load past the edge reads the
 combine's identity), so nothing is padded: the reference pads rows to 8,
 a TPU sublane rule that would cost 8× the bytes of a one-row operand.
-
-K3 walks a single long row with ONE program, so a one-row scan uses one
-of the 132 SMs (a chained scan with decoupled look-back is its later
-redesign).
 
 :func:`prefix_sum_plain` and :func:`chunk_scan_plain` are the plain
 PyTorch versions of the same blocked walk (Hillis–Steele inside each
@@ -38,14 +41,18 @@ PyTorch versions of the same blocked walk (Hillis–Steele inside each
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.fused_kernel import check_cuda, load_module
 
+from . import _cuda
 from .ref import chunk_scan as _affine_scan
 from .ref import shifted
 
-TILE_ELEMS = 4096            # elements of one program's (br, bc) block
+TILE_ELEMS = 4096            # elements of a K4 program's (br, bc) block,
+#                              columns of a K3 tile
 
 
 def block_shape(rows: int, cols: int) -> tuple[int, int]:
@@ -115,7 +122,7 @@ def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# K3 / K4 in Triton
+# K4 in Triton, K3 in CUDA C++
 # ---------------------------------------------------------------------------
 
 TRITON_SOURCE = '''
@@ -126,24 +133,6 @@ import triton.language as tl
 @triton.jit
 def _affine(pa, pb, qa, qb):
     return pa * qa, qb + qa * pb
-
-
-@triton.jit
-def k3_prefix_sum(X, O, rows, cols, stride_x,
-                  BR: tl.constexpr, BC: tl.constexpr):
-    r = tl.program_id(0).to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)
-    xrow = X + r[:, None] * stride_x
-    orow = O + r[:, None] * cols
-    last = (tl.arange(0, BC) == BC - 1)[None, :]
-    carry = tl.zeros((BR,), O.dtype.element_ty)
-    for c0 in range(0, cols, BC):
-        c = c0 + tl.arange(0, BC)
-        m = (r < rows)[:, None] & (c < cols)[None, :]
-        x = tl.load(xrow + c[None, :], mask=m, other=0)
-        y = (tl.cumsum(x.to(O.dtype.element_ty), axis=1)
-             + carry[:, None]).to(O.dtype.element_ty)
-        tl.store(orow + c[None, :], y, mask=m)
-        carry = tl.sum(tl.where(last, y, 0), axis=1).to(O.dtype.element_ty)
 
 
 @triton.jit
@@ -168,7 +157,7 @@ def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
 
 
 def _triton_kernels():
-    """The module of K3/K4, written into the build directory and imported
+    """The module of K4, written into the build directory and imported
     there at first use (Triton reads a kernel's source through
     ``inspect``)."""
     return load_module(TRITON_SOURCE, prefix="scan")[0]
@@ -179,6 +168,42 @@ def _rows_operand(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(1) == 1 else x.contiguous()
 
 
+K3_D_TILE = 25               # adds on an element's way to a tile prefix
+_K3_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+                   torch.float16: 3}
+_K3_SIGNATURES = {
+    # (dtype, x, out, rows, cols, stride, scratch, stream)
+    "k3_prefix_sum": (_cuda.I32, _cuda.P, _cuda.P, _cuda.I64, _cuda.I64,
+                      _cuda.I64, _cuda.P, _cuda.P),
+}
+
+
+def k3_bound_constants(dtype: torch.dtype, cols: int) -> tuple[int, int]:
+    """(k_abs, k_ends) of K3's first-order error bound
+    ``eps·(k_abs·Σ_{j≤i}|x_j| + k_ends·Σ_{e<i}|y_e| + |y_i|)`` (e over the
+    ends of the row's earlier 4096-column tiles; eps of the output type):
+    25 adds at most inside a tile, plus the exclusive prefix rounded once
+    from the double look-back (near y at the previous tile's end; one more
+    unit of Σ|x| absorbs the look-back's double roundings). In float64 the
+    look-back rounds at the working precision: 5 butterfly levels, one add
+    for each window of 32 tiles beyond the second (at most ⌈tiles / 32⌉
+    windows), and each published value loses up to 3 units of its last
+    place to the status bits (3 more on Σ|x| for an aggregate, on y_e for
+    an inclusive prefix). The carried walk's constants are
+    (⌈log2 bc⌉, 1)."""
+    if dtype == torch.float64:
+        windows = -(-(-(-cols // TILE_ELEMS)) // 32)
+        return K3_D_TILE + 5 + 3 + max(0, windows - 2), 4
+    return K3_D_TILE + 1, 1
+
+
+def walk_bound_constants(cols: int) -> tuple[int, int]:
+    """(k_abs, k_ends) of the carried walk (:func:`prefix_sum_plain`): a
+    Hillis–Steele tree of depth ⌈log2 bc⌉ in each block, one carry add
+    per block."""
+    return math.ceil(math.log2(block_shape(1, cols)[1])), 1
+
+
 class PrefixSumKernel:
     """The K3 wrapper. ``launches`` counts kernel launches, and only those."""
 
@@ -186,19 +211,26 @@ class PrefixSumKernel:
         self.launches = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if not x.dtype.is_floating_point:
-            raise ValueError(f"K3 scans floating-point rows, got {x.dtype}")
+        code = _K3_DTYPE_CODES.get(x.dtype)
+        if code is None:
+            raise ValueError(f"K3 scans floating-point rows of float32, "
+                             f"float64, float16 or bfloat16, got {x.dtype}")
         check_cuda([x], "K3")
         x = _rows_operand(x)
         rows, cols = x.shape
         out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
         if x.numel() == 0:
             return out
-        br, bc = block_shape(rows, cols)
+        tiles = rows * -(-cols // TILE_ELEMS)     # K3's tiles: 4096 columns
+        # the tile counter, then each tile's state word: one zero fill,
+        # 8 bytes a tile
+        scratch = torch.zeros(1 + tiles, dtype=torch.int64, device=x.device)
+        lib = _cuda.load("prefix_scan", _K3_SIGNATURES)
         with torch.cuda.device(x.device):
-            _triton_kernels().k3_prefix_sum[(-(-rows // br),)](
-                x, out, rows, cols, x.stride(0), BR=br, BC=bc,
-                num_warps=8 if br * bc >= 2048 else 4)
+            err = lib.k3_prefix_sum(
+                code, x.data_ptr(), out.data_ptr(), rows, cols, x.stride(0),
+                scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        _cuda.check(lib, err, "K3 prefix_sum")
         self.launches += 1
         return out
 

@@ -30,8 +30,9 @@ RNG = np.random.default_rng(42)
 TOL = 2e-5
 
 
-def qkv(shape_q, shape_kv=None, dtype="float32"):
-    out = [RNG.standard_normal(s).astype(np.float32)
+def qkv(shape_q, shape_kv=None, dtype="float32", rng=None):
+    rng = RNG if rng is None else rng
+    out = [rng.standard_normal(s).astype(np.float32)
            for s in (shape_q, shape_kv or shape_q, shape_kv or shape_q)]
     if dtype == "bfloat16":
         out = [torch.from_numpy(x).to(torch.bfloat16).float().numpy()
@@ -144,3 +145,110 @@ def test_cuda_source_exports_the_bound_launcher():
     assert "repro_cuda_error_string" in src
     for d in fa.HEAD_DIMS:
         assert f"case {d}:" in src
+
+
+# ---------------------------------------------------------------------------
+# K8's bfloat16 arithmetic (csrc/flashattn.cu, the tensor-core path),
+# emulated on the CPU
+# ---------------------------------------------------------------------------
+
+def k8_bf16_emulated(q, k, v, causal=True, block_k=128, terms=3):
+    """K8's bf16 instance: q·kᵀ of bf16 values summed in fp32 (the products
+    are exact), the online softmax in fp32 over 128-key tiles, p·v with p
+    split into ``terms`` bf16 terms (p1 = bf16(p), p2 = bf16(p - p1),
+    p3 = bf16(p - p1 - p2)), their products into one fp32 accumulator, l
+    summed from the fp32 p, out = acc / max(l, 1e-30) rounded to bf16."""
+    *lead, sq, d = q.shape
+    sk = k.shape[-2]
+    qf, kf, vf = (t.float().reshape(-1, t.shape[-2], d) for t in (q, k, v))
+    qi = torch.arange(sq)[:, None]
+    m = torch.full((qf.shape[0], sq, 1), fa.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, sk, block_k):
+        kj = torch.arange(k0, k0 + block_k)
+        short = k0 + block_k - min(sk, k0 + block_k)   # rows past sk
+        kt = torch.nn.functional.pad(kf[:, k0:k0 + block_k], (0, 0, 0, short))
+        vt = torch.nn.functional.pad(vf[:, k0:k0 + block_k], (0, 0, 0, short))
+        s = torch.matmul(qf, kt.transpose(-1, -2)) * d ** -0.5
+        if causal:
+            s = torch.where(kj > qi + sk - sq, fa.NEG_INF, s)
+        s = torch.where(kj >= sk, float("-inf"), s)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        rest = p
+        for _ in range(terms):
+            term = rest.to(torch.bfloat16).float()
+            acc = acc + torch.matmul(term, vt)
+            rest = rest - term
+        m = m_new
+    out = (acc / torch.clamp_min(l, 1e-30)).to(torch.bfloat16)
+    return out.reshape(*lead, sq, d)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    import importlib.util
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_attn",
+                                                  root / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("logit_scale", [1.0, 1000.0])
+def test_k8_bf16_arithmetic_within_the_gate(smoke, logit_scale):
+    xs = qkv((1, 2, 256, 128), dtype="bfloat16",
+             rng=np.random.default_rng(11))
+    xs[0] = torch.from_numpy(xs[0] * logit_scale).to(
+        torch.bfloat16).float().numpy()              # logits ~ logit_scale
+    q, k, v = to_torch(xs, torch.bfloat16)
+    got = k8_bf16_emulated(q, k, v)
+    bound = smoke.attn_bound(q, k, v)
+    want = torch.from_numpy(np.array(jops.flash_attention(
+        *to_jax(xs, jnp.bfloat16), causal=True,
+        mode="interpret").astype(jnp.float32)))
+    assert smoke.attn_misses(got, want, bound)[0] == 0
+    plain = fa.flash_attention_plain(q, k, v)
+    assert smoke.attn_misses(got, plain, bound)[0] == 0
+    # and as accurate as the plain version against float64 (chip_smoke's
+    # gate on the LM path's own inputs, whose logits are ~10^3)
+    exact = smoke.exact_attention(q, k, v)
+    assert smoke.ulp_misses(got, exact) <= smoke.ulp_misses(plain, exact)
+
+
+def test_k8_bf16_three_terms_carry_p_to_fp32():
+    # each bf16 term of the split leaves at most 2^-8 of what it splits,
+    # and the differences are exact in fp32: p1 errs by up to 2^-8·p,
+    # p1 + p2 by 2^-16·p, p1 + p2 + p3 by 2^-24·p
+    rng = np.random.default_rng(3)
+    p = torch.from_numpy(rng.uniform(0, 1, (64, 128)).astype(np.float32))
+    rest, total = p, torch.zeros_like(p, dtype=torch.float64)
+    for n in (1, 2, 3):
+        term = rest.to(torch.bfloat16).float()
+        assert torch.equal((rest - term).double(),
+                           rest.double() - term.double())     # exact
+        rest = rest - term
+        total = total + term.double()
+        err = (total - p.double()).abs()
+        assert bool((err <= 2.0 ** (-8 * n) * p.double()).all())
+
+
+def test_k8_bf16_two_terms_fall_short_of_fp32(smoke):
+    # why K8 takes three terms: with two, at unit-scale logits, more
+    # outputs land beyond one bf16 ulp of the float64 result than the fp32
+    # plain version's (inside the bound all the same)
+    q, k, v = to_torch(qkv((1, 2, 256, 128), dtype="bfloat16",
+                           rng=np.random.default_rng(12)), torch.bfloat16)
+    exact = smoke.exact_attention(q, k, v)
+    plain = smoke.ulp_misses(fa.flash_attention_plain(q, k, v), exact)
+    two = k8_bf16_emulated(q, k, v, terms=2)
+    assert smoke.attn_misses(two, fa.flash_attention_plain(q, k, v),
+                             smoke.attn_bound(q, k, v))[0] == 0
+    assert smoke.ulp_misses(two, exact) > plain
+    assert smoke.ulp_misses(k8_bf16_emulated(q, k, v), exact) <= plain

@@ -8,7 +8,8 @@ device. Run them on an H100 with
 ``pytest -m gpu tests/test_torch_lm_kernels.py``.
 
 Tolerances: K7 bit-exact (values and indices; the kernel takes the same
-selects as the plain network, ties in ascending index order). K8 per
+selects as the plain network, ties in ascending index order). K8 (in
+bfloat16 on the tensor cores, p·v with p split into two bf16 terms) per
 row within the fp32 summation bound of two orders,
 ``(D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps)·2·max|v|``, and in
 bfloat16 that bound plus one bfloat16 ulp (chip_smoke.attn_misses). The
@@ -123,6 +124,39 @@ def test_k8_reads_strided_heads_in_place(cuda):
     assert got.transpose(1, 2).is_contiguous()
     want = fa.K8(*(t.contiguous() for t in (q, k, v)))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+def test_k8_bf16_copies_an_operand_tma_cannot_read(cuda, smoke, d):
+    # k's seq stride of d + 1 elements is no whole number of 16-byte units,
+    # so the wrapper copies it once (inside K8, counted) for TMA
+    rng = np.random.default_rng(d)
+    q, v = (torch.from_numpy(rng.standard_normal((2, 3, 130, d),
+                                                 dtype=np.float32))
+            .to(cuda, torch.bfloat16) for _ in range(2))
+    wide = torch.from_numpy(rng.standard_normal(
+        (2, 3, 130, d + 1), dtype=np.float32)).to(cuda, torch.bfloat16)
+    k = wide[..., :d]
+    assert not fa.tma_aligned(k) and fa.tma_aligned(q)
+    copies, launches = fa.K8.aligned_copies, fa.K8.launches
+    got = fa.K8(q, k, v)
+    assert fa.K8.aligned_copies == copies + 1
+    assert fa.K8.launches == launches + 1
+    bound = smoke.attn_bound(q, k, v)
+    for want in (fa.flash_attention_plain(q, k, v),
+                 ref.flash_attention(q, k, v)):
+        assert smoke.attn_misses(got, want, bound)[0] == 0
+
+
+def test_k8_launches_once_per_call(cuda):
+    x = keys((2, 4, 300, 64), torch.bfloat16, 2, cuda)
+    before = fa.K8.launches
+    for i in range(3):
+        fa.K8(x, x, x)
+        assert fa.K8.launches == before + i + 1
+    with isa.use("auto"):
+        ops.flash_attention(x, x, x)
+    assert fa.K8.launches == before + 4
 
 
 def test_k8_checks_on_card(cuda):

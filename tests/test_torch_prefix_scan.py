@@ -14,6 +14,7 @@ The Triton kernels themselves run only on the card
 """
 import ast
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -27,7 +28,7 @@ import repro_torch.kernels  # noqa: F401 — registers the port's ISA
 from repro.kernels import ops as jops
 from repro.kernels import prefix_scan as jps
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _cuda, ops, ref
 from repro_torch.kernels import prefix_scan as ps
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -221,11 +222,21 @@ def test_scan_registrations_mirror_jax():
 
 
 def test_triton_source_defines_k3_and_k4():
+    # K4 and its combine stay Triton; K3 is CUDA C++ (csrc/prefix_scan.cu)
     tree = ast.parse(ps.TRITON_SOURCE)
     fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    assert {"_affine", "k3_prefix_sum", "k4_chunk_scan"} <= set(fns)
+    assert {"_affine", "k4_chunk_scan"} <= set(fns)
+    assert "k3_prefix_sum" not in fns
     for fn in fns.values():
         assert [ast.unparse(d) for d in fn.decorator_list] == ["triton.jit"]
+    src = (_cuda.CSRC / "prefix_scan.cu").read_text()
+    for name, argtypes in ps._K3_SIGNATURES.items():
+        m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src, re.S)
+        assert m, name
+        assert len(m.group(1).split(",")) == len(argtypes)
+    assert "repro_cuda_error_string" in src
+    assert "atomicAdd" in src and "__ballot_sync" in src      # look-back
+    assert "k3_walk_kernel" in src                             # walk
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +260,8 @@ def test_smoke_phase_f_matches_jax(smoke):
     bc = ps.block_shape(1, x.numel())[1]
     bad, _ = smoke.prefix_bound_misses(got, torch.cumsum(x.double(), 0),
                                        torch.cumsum(x.abs().double(), 0),
-                                       bc, step=1000)
+                                       bc, *ps.walk_bound_constants(
+                                           x.numel()), step=1000)
     assert bad == 0
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke.phase_f(x, "kernel")
@@ -269,19 +281,158 @@ def test_smoke_phase_g_matches_jax(smoke):
         smoke.phase_g(a, s, "kernel")
 
 
+def broken_carries(good: torch.Tensor, bc: int) -> list[torch.Tensor]:
+    """A scan whose carry is lost part-way along the row, and one whose
+    tail is left unwritten."""
+    reset = good.clone()
+    reset.view(-1, bc)[16:] -= good.view(-1, bc)[15, -1]
+    zeros = good.clone()
+    zeros[good.numel() // 4:] = 0
+    return [reset, zeros]
+
+
 def test_smoke_phase_f_bound_rejects_a_broken_carry(smoke):
-    # the gate phase F holds K3 to must fail a scan whose carry is lost
-    # part-way along the row, or whose tail is left unwritten
+    # the gate phase F holds the plain walk to must fail a scan whose carry
+    # is lost part-way along the row, or whose tail is left unwritten
     n = 1 << 18
     (x,) = smoke.make_inputs(6, [n], "cpu")
     bc = 4096
     good = ps.prefix_sum_plain(x[None], bc)[0]
     ref64 = torch.cumsum(x.double(), 0)
     abs64 = torch.cumsum(x.abs().double(), 0)
-    assert smoke.prefix_bound_misses(good, ref64, abs64, bc)[0] == 0
-    reset = good.clone()
-    reset.view(-1, bc)[16:] -= good.view(-1, bc)[15, -1]
-    zeros = good.clone()
-    zeros[n // 4:] = 0
-    for broken in (reset, zeros):
-        assert smoke.prefix_bound_misses(broken, ref64, abs64, bc)[0] > 0
+    consts = ps.walk_bound_constants(n)
+    assert smoke.prefix_bound_misses(good, ref64, abs64, bc, *consts)[0] == 0
+    for broken in broken_carries(good, bc):
+        assert smoke.prefix_bound_misses(broken, ref64, abs64, bc,
+                                         *consts)[0] > 0
+
+
+# ---------------------------------------------------------------------------
+# K3's summation order (csrc/prefix_scan.cu), emulated in float32
+# ---------------------------------------------------------------------------
+
+def _hs(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Inclusive Hillis–Steele over the last axis, as __shfl_up_sync does
+    it: lane l adds lane l - d for d = 1, 2, … < n."""
+    d = 1
+    while d < n:
+        x = x + torch.nn.functional.pad(x[..., :-d], (d, 0))
+        d *= 2
+    return x
+
+
+def _exclusive(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.pad(x[..., :-1], (1, 0))
+
+
+def _k3_tiles(x: torch.Tensor):
+    """K3's in-tile order on one float32 row: (local prefixes (tiles, 8,
+    32, 16) in float32, aggregates (tiles,) in float32)."""
+    n = x.numel()
+    tiles = -(-n // 4096)
+    v = torch.nn.functional.pad(x, (0, tiles * 4096 - n)).reshape(
+        tiles, 8, 32, 16)
+    items = [v[..., 0]]
+    for i in range(1, 16):
+        items.append(items[-1] + v[..., i])      # fp32, one add at a time
+    local = torch.stack(items, -1)
+    lanes = _hs(local[..., -1], 32)              # (tiles, 8, 32)
+    warps = _hs(lanes[..., -1], 8)               # (tiles, 8)
+    off = _exclusive(lanes) + _exclusive(warps)[..., None]
+    return local + off[..., None], warps[:, -1]
+
+
+def k3_walk_emulated(x: torch.Tensor) -> torch.Tensor:
+    """K3's walk mode on one float32 row: the in-tile order, then
+    y = local + carry and carry += aggregate, both in float32."""
+    local, agg = _k3_tiles(x)
+    carry = torch.zeros((), dtype=torch.float32)
+    out = []
+    for t in range(local.shape[0]):
+        out.append(local[t] + carry)
+        carry = carry + agg[t]
+    return torch.stack(out).reshape(-1)[:x.numel()]
+
+
+def k3_emulated(x: torch.Tensor, depth: int) -> torch.Tensor:
+    """K3 on one float32 row, its in-tile order exactly: 16 items a thread
+    summed serially, the 32 lanes' totals by Hillis–Steele, the 8 warps'
+    totals by Hillis–Steele, offset = lane prefix + warp prefix, each item
+    + offset; then the look-back in double, as if every tile met its
+    nearest inclusive prefix ``depth`` tiles back (tile 0's always), read
+    in windows of 32 lanes summed by a butterfly; y = local + exclusive
+    prefix rounded once to float32."""
+    n = x.numel()
+    local, agg = _k3_tiles(x)
+    agg = agg.double()
+    tiles = agg.numel()
+    incl = torch.zeros(tiles, dtype=torch.float64)
+    excl = torch.zeros(tiles, dtype=torch.float64)
+    for t in range(tiles):
+        s = max(t - depth, 0)                    # the nearest inclusive
+        e, back = 0.0, t - 1
+        while t:
+            p = back - torch.arange(32)
+            val = torch.where(p >= s, agg[p.clamp_min(0)], 0.0)
+            val = torch.where(p == s, incl[s], val)
+            for d in (16, 8, 4, 2, 1):           # the butterfly
+                val = val + val[torch.arange(32) ^ d]
+            e += float(val[0])
+            if back - 31 <= s:
+                break
+            back -= 32
+        excl[t] = e
+        incl[t] = e + agg[t]
+    y = local + excl.float()[:, None, None, None]
+    return y.reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 31, 64])
+def test_k3_order_within_its_bound(smoke, depth):
+    n = 1 << 18                                  # 64 tiles of 4096
+    (x,) = smoke.make_inputs(6, [n], "cpu")
+    got = k3_emulated(x, depth)
+    ref64 = torch.cumsum(x.double(), 0)
+    abs64 = torch.cumsum(x.abs().double(), 0)
+    consts = ps.k3_bound_constants(torch.float32, n)
+    bad, worst = smoke.prefix_bound_misses(got, ref64, abs64, 4096, *consts)
+    assert bad == 0, worst
+    # the same order at a ragged length agrees with the plain walk
+    close(k3_emulated(x[:10_000], depth), ps.prefix_sum_plain(
+        x[None, :10_000], 4096)[0], PREFIX_TOL)
+
+
+def test_k3_walk_order_within_its_bound(smoke):
+    n = 1 << 18
+    (x,) = smoke.make_inputs(6, [n], "cpu")
+    got = k3_walk_emulated(x)
+    ref64 = torch.cumsum(x.double(), 0)
+    abs64 = torch.cumsum(x.abs().double(), 0)
+    consts = ps.k3_bound_constants(torch.float32, n)
+    bad, worst = smoke.prefix_bound_misses(got, ref64, abs64, 4096, *consts)
+    assert bad == 0, worst
+    close(k3_walk_emulated(x[:10_000]), ps.prefix_sum_plain(
+        x[None, :10_000], 4096)[0], PREFIX_TOL)
+
+
+@pytest.mark.parametrize("which", ["reset", "zeros"])
+def test_k3_bound_rejects_a_broken_carry(smoke, which):
+    n = 1 << 18
+    (x,) = smoke.make_inputs(6, [n], "cpu")
+    good = k3_emulated(x, 2)
+    broken = dict(zip(["reset", "zeros"], broken_carries(good, 4096)))[which]
+    ref64 = torch.cumsum(x.double(), 0)
+    abs64 = torch.cumsum(x.abs().double(), 0)
+    consts = ps.k3_bound_constants(torch.float32, n)
+    assert smoke.prefix_bound_misses(broken, ref64, abs64, 4096,
+                                     *consts)[0] > 0
+
+
+def test_k3_bound_constants():
+    assert ps.k3_bound_constants(torch.float32, 1 << 26) == (26, 1)
+    assert ps.k3_bound_constants(torch.bfloat16, 5) == (26, 1)
+    # float64: 5 butterfly levels, one add per window past the second,
+    # 3 units lost to the status bits of each published value
+    assert ps.k3_bound_constants(torch.float64, 4096 * 64) == (33, 4)
+    assert ps.k3_bound_constants(torch.float64, 4096 * 65) == (34, 4)
+    assert ps.walk_bound_constants(1 << 26) == (12, 1)

@@ -1,17 +1,20 @@
 """K3–K6 against their plain PyTorch versions, on the card.
 
-K3/K4 are Triton and K5/K6 CUDA C++ (built with nvcc at first use);
-neither has a CPU mode, so every test here is marked ``gpu`` and skips
-without a CUDA device. Run them on an H100 with
+K3 (the look-back scan), K5 and K6 are CUDA C++ (built with nvcc at first
+use) and K4 is Triton; none has a CPU mode, so every test here is marked
+``gpu`` and skips without a CUDA device. Run them on an H100 with
 ``pytest -m gpu tests/test_torch_scan_sort_kernels.py``.
 
 Tolerances: sorts and merges bit-exact (the kernels take the same
 selects as the plain network); scans within the first-order bound of
 their summation order against float64: for the sum,
-``eps·(⌈log2 bc⌉·Σ_{j≤i}|x_j| + Σ_{e<i}|y_e| + |y_i|)`` (a tree inside
-each block of ``bc`` columns, then one add of the carry per block, which
-rounds on the partial sum y_e at each earlier block end e); for the
-affine scan with 0 < a ≤ 1, ``(⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps·Σ_{j≤i}|b_j|``.
+``eps·(k_abs·Σ_{j≤i}|x_j| + k_ends·Σ_{e<i}|y_e| + |y_i|)`` (e over the
+ends of the earlier blocks of ``bc`` columns) with K3's constants
+(``prefix_scan.k3_bound_constants``: at most 25 adds inside a 4096-column
+tile, the exclusive prefix rounded once from the double look-back) and
+the plain walk's (⌈log2 bc⌉, 1: a tree inside each block, one add of the
+carry per block); for the affine scan with 0 < a ≤ 1,
+``(⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps·Σ_{j≤i}|b_j|``.
 """
 import math
 
@@ -49,15 +52,23 @@ def keys(shape, dtype, seed, dev):
     return x.to(dtype).to(dev)
 
 
-def prefix_bound(x, bc, eps):
-    """(float64 inclusive sum along the last axis, its elementwise bound)."""
+def prefix_bound(x, bc, eps, k_abs, k_ends=1):
+    """(float64 inclusive sum along the last axis, its elementwise bound
+    for a summation order of constants (k_abs, k_ends))."""
     y = torch.cumsum(x.double(), -1)
     ends = y[..., bc - 1::bc].abs()
     carried = torch.nn.functional.pad(torch.cumsum(ends, -1), (1, 0))
     blk = torch.arange(x.shape[-1], device=x.device) // bc
-    lg = math.ceil(math.log2(bc))
-    return y, eps * (lg * torch.cumsum(x.abs().double(), -1)
-                     + carried[..., blk] + y.abs())
+    return y, eps * (k_abs * torch.cumsum(x.abs().double(), -1)
+                     + k_ends * carried[..., blk] + y.abs())
+
+
+def within_k3_bound(x, got, eps=None):
+    """K3's output within its own order's bound (its 4096-column tiles)."""
+    eps = float(torch.finfo(x.dtype).eps) if eps is None else eps
+    want, bound = prefix_bound(x, ps.TILE_ELEMS, eps,
+                               *ps.k3_bound_constants(x.dtype, x.shape[-1]))
+    return bool(((got.double() - want).abs() <= bound).all())
 
 
 def scan_bound(abs_cum, eps, bc, extra):
@@ -151,8 +162,9 @@ def test_k3_within_summation_bound(cuda, shape):
     assert ps.K3.launches == before + 1
     plain = ps.prefix_sum_kernel(x, interpret=True)
     bc = ps.block_shape(*shape)[1]
-    want, bound = prefix_bound(x, bc, float(torch.finfo(torch.float32).eps))
-    assert bool(((got.double() - want).abs() <= bound).all())
+    assert within_k3_bound(x, got)
+    want, bound = prefix_bound(x, bc, float(torch.finfo(torch.float32).eps),
+                               *ps.walk_bound_constants(shape[1]))
     assert bool(((plain.double() - want).abs() <= bound).all())
 
 
@@ -160,9 +172,73 @@ def test_k3_bfloat16(cuda):
     x = keys((4, 3000), torch.bfloat16, 7, cuda)
     got = ps.prefix_sum_kernel(x)
     assert got.dtype == torch.bfloat16
-    bc = ps.block_shape(4, 3000)[1]
-    want, bound = prefix_bound(x, bc, 2.0 ** -8)
-    assert bool(((got.double() - want).abs() <= bound).all())
+    assert within_k3_bound(x, got, 2.0 ** -8)
+
+
+def test_k3_forward_progress_with_tiles_beyond_the_resident_blocks(cuda):
+    # 4096 tiles of one row: far more than the blocks resident at once, so
+    # a block must never wait on a tile no running block has taken
+    x = keys((1, 1 << 24), torch.float32, 13, cuda)
+    got = ps.prefix_sum_kernel(x)
+    torch.cuda.synchronize()
+    assert within_k3_bound(x, got)
+
+
+def test_k3_router_rows_and_their_counts(cuda):
+    x = keys((384, 32768), torch.float32, 14, cuda)
+    assert within_k3_bound(x, ps.prefix_sum_kernel(x))
+    ones = (x > 1.0).float()                    # 0/1 rows: sums exact
+    assert torch.equal(ps.prefix_sum_kernel(ones), torch.cumsum(ones, 1))
+
+
+@pytest.mark.parametrize("cols", [5000, 4096 * 3, 4097])
+def test_k3_strided_rows(cuda, cols):
+    big = keys((6, cols + 7), torch.float32, 15, cuda)
+    for x in (big[:, 3:cols + 3], big[::2, :cols]):   # unaligned, every other
+        assert x.stride(0) != cols
+        got = ps.prefix_sum_kernel(x)
+        assert within_k3_bound(x, got)
+        assert torch.allclose(got, ps.prefix_sum_kernel(x.contiguous()),
+                              rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.float64])
+def test_k3_walk_mode_on_many_rows(cuda, dtype):
+    # rows enough to fill the card take the walk (one block a row): a
+    # ragged last tile, a strided view and the 16-bit and float64 cases
+    big = keys((300, 2 * 4096 + 9), torch.float32, 18, cuda).to(dtype)
+    for x in (big, big[:, 1:]):
+        got = ps.prefix_sum_kernel(x)
+        assert got.dtype == dtype
+        assert within_k3_bound(x, got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_k3_float16_and_float64(cuda, dtype):
+    x = keys((3, 3 * 4096 + 11), torch.float32, 16, cuda).to(dtype)
+    got = ps.prefix_sum_kernel(x)
+    assert got.dtype == dtype
+    assert within_k3_bound(x, got)
+
+
+def test_k3_state_is_reset_between_calls(cuda):
+    x = keys((2, 40_000), torch.float32, 17, cuda)
+    first = ps.prefix_sum_kernel(x)
+    assert within_k3_bound(x, first)
+    before = ps.K3.launches
+    for _ in range(10):
+        got = ps.prefix_sum_kernel(x)
+        assert within_k3_bound(x, got)
+        # the look-back's depth varies with timing: last bits only
+        assert torch.allclose(got, first, rtol=0, atol=1e-3)
+    assert ps.K3.launches == before + 10
+
+
+def test_k3_rejects_other_dtypes(cuda):
+    with pytest.raises(ValueError, match="floating-point"):
+        ps.prefix_sum_kernel(torch.zeros(2, 8, dtype=torch.int32,
+                                         device=cuda))
 
 
 @pytest.mark.parametrize("shape", [(1, 16), (4, 256), (8, 1024), (3, 5000),

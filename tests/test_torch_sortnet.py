@@ -269,6 +269,32 @@ def test_cuda_source_exports_the_bound_launchers():
     assert "__shfl_xor_sync" in src and "__syncthreads" in src
 
 
+_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114k3_scan_kernelIfEEvPKT_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114k3_scan_kernelIfEEvPKT_
+    0 bytes stack frame, 28 bytes spill stores, 28 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 18480 bytes smem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_12tc14k8_flash_wgmmaILi128EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Used 242 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_and_kernel_names_are_read(smoke):
+    # what chip_smoke.py reports of each CUDA source's build
+    usage = _cuda.ptxas_usage(_PTXAS)
+    names = {smoke.short_kernel_name(k): u for k, u in usage.items()}
+    assert names == {
+        "k3_scan_kernel<float>": {"registers": 32, "smem_bytes": 18480,
+                                  "spill_stores": 28},
+        "k8_flash_wgmma<128>": {"registers": 242, "smem_bytes": 0,
+                                "spill_stores": 0}}
+    assert smoke.short_kernel_name(
+        "_ZN1a14k8_flash_kernelIfLi64EEEvPKT_") == "k8_flash_kernel<float,64>"
+    assert smoke.short_kernel_name(
+        "_ZN1a14k7_topk_kernelI13__nv_bfloat16EEvPKT_") \
+        == "k7_topk_kernel<nv_bfloat16>"
+
+
 def test_library_name_follows_the_source_hash(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     p = _cuda.library_path("sortnet")
