@@ -89,13 +89,22 @@ Tolerances (fixed before any run):
     in bfloat16 that bound plus one bfloat16 ulp at |plain| + bound (both
     round the fp32 result once; near zero, and where the random weights
     make the logits large, the fp32 difference alone can exceed an ulp),
-    and the number of elements beyond one ulp is printed; on the path's
-    own inputs, also no more elements beyond one bfloat16 ulp of the
-    float64 result than the plain version has (K8's q·kᵀ sums in the
-    tensor cores' order: at logits ~10³, where an fp32 ulp is 6e-5, the
-    last bit of a logit moves an output near zero by more than an ulp,
-    so no order but the plain version's own lands within one ulp of it
-    everywhere; the count against float64 holds K8 to be as accurate);
+    and the number of elements beyond one ulp is printed. In bfloat16
+    also against the float64 result (`attn_f64_misses`), on the path's own
+    inputs and at the prefill's shape with unit-scale logits: every output
+    o_d within half a bf16 ulp plus the row's relative term above times
+    2·(Σ_j p_j·|v_jd| + |o_d|) (its own scale, not the head's max|v|); and
+    no more outputs beyond one bf16 ulp of float64 than the plain version
+    has. On the path's inputs strictly; at unit scale, where K8 and plain
+    both sit at fp32's floor (~850 of 33.5 M each) and differ only in which
+    elements they miss, give or take UNIT_SCALE_NOISE = 4 standard
+    deviations of the paired difference (√ of the elements only one of
+    them misses) — two bf16 terms of p, or the three terms chained in one
+    accumulator, miss 10× and 4× as many there. "Within one bf16 ulp of the
+    plain version" holds only for a kernel that sums q·kᵀ in the plain
+    version's own order: at the random weights' logits (~10³, fp32 ulp
+    6e-5) a logit's last bit moves an output near zero by more than an
+    ulp;
   * H: every prefill and decode logit finite, the greedy tokens of two
     runs on the same inputs bit-identical, the launch counts above;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
@@ -118,7 +127,6 @@ import dataclasses
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import time
@@ -171,6 +179,7 @@ SSD_SHAPE = (4, 32, 64)            # phase G: (batch, chunks, heads)
 SSD_STATE = (64, 128)              # (headdim, state) of mamba2_1p3b
 EPS = float(torch.finfo(torch.float32).eps)
 K3_PLAIN_LIMIT = 0.05              # phase F: |K3 − plain|, see the docstring
+UNIT_SCALE_NOISE = 4.0             # phase H: K8's paired count (docstring)
 LM_ARCH = "kimi_k2_1t"             # phase H: the served model
 LM_LAYERS = 2                      # of 61 (see the docstring)
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 16
@@ -368,19 +377,26 @@ class Tap:
         setattr(self.module, self.name, self.fn)
 
 
-def attn_bound(q, k, v, scale=None) -> torch.Tensor:
-    """(..., sq, 1): each row's fp32 summation bound for attention computed
-    in two orders, (D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps)·2·max|v|
-    (max|v| over the row's head); walked over the leading axis."""
+def attn_row_error(q, k, scale=None) -> torch.Tensor:
+    """(..., sq, 1): D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps, each row's
+    first-order relative error of fp32 attention (the logits' dot
+    products, then the weighted sums); walked over the leading axis."""
     d, sk = q.shape[-1], k.shape[-2]
     scale = d ** -0.5 if scale is None else scale
     out = []
-    for qb, kb, vb in zip(q, k, v):
+    for qb, kb in zip(q, k):
         qk = torch.matmul(qb.float().abs(), kb.float().abs().transpose(-1, -2))
-        vmax = vb.float().abs().amax(dim=(-2, -1), keepdim=True)
-        out.append((d * EPS * scale * qk.amax(-1, keepdim=True) + sk * EPS)
-                   * 2 * vmax)
+        out.append(d * EPS * scale * qk.amax(-1, keepdim=True) + sk * EPS)
     return torch.stack(out)
+
+
+def attn_bound(q, k, v, scale=None) -> torch.Tensor:
+    """(..., sq, 1): each row's fp32 summation bound for attention computed
+    in two orders, :func:`attn_row_error`·2·max|v| (max|v| over the row's
+    head)."""
+    vmax = torch.stack([vb.float().abs().amax(dim=(-2, -1), keepdim=True)
+                        for vb in v])
+    return attn_row_error(q, k, scale) * 2 * vmax
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -402,27 +418,45 @@ def attn_misses(got, want, bound) -> tuple[int, float, int | None]:
             int((err > bf16_ulp(w)).sum()))
 
 
-def exact_attention(q, k, v, heads: int = 8) -> torch.Tensor:
+def exact_attention(q, k, v, heads: int = 8):
     """Causal attention (bottom-right aligned) of the same bf16 or fp32
-    values in float64, a few heads at a time."""
+    values in float64, a few heads at a time; and each output's
+    Σ_j p_j·|v_jd|, the scale of its summation errors."""
     sq, sk, d = q.shape[-2], k.shape[-2], q.shape[-1]
     mask = (torch.arange(sk, device=q.device)[None, :]
             > torch.arange(sq, device=q.device)[:, None] + sk - sq)
     out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    mass = torch.empty_like(out)
     for b in range(q.shape[0]):
         for h in range(0, q.shape[1], heads):
             s = torch.matmul(q[b, h:h + heads].double(),
                              k[b, h:h + heads].double().transpose(-1, -2))
             p = torch.softmax((s * d ** -0.5).masked_fill(mask, -math.inf),
                               -1)
-            out[b, h:h + heads] = torch.matmul(p, v[b, h:h + heads].double())
-    return out
+            vb = v[b, h:h + heads].double()
+            out[b, h:h + heads] = torch.matmul(p, vb)
+            mass[b, h:h + heads] = torch.matmul(p, vb.abs())
+    return out, mass
 
 
-def ulp_misses(got, exact) -> int:
-    """Elements of ``got`` more than one bf16 ulp from ``exact``."""
-    return int(((got.double() - exact).abs()
-                > bf16_ulp(exact.float()).double()).sum())
+def attn_f64_misses(got, plain, q, k, v) -> dict:
+    """bf16 ``got`` and ``plain`` (attention of q, k, v) against the float64
+    result: the elements of each beyond one bf16 ulp of it, the elements
+    beyond one ulp for ``got`` alone and for ``plain`` alone, and the
+    elements of ``got`` outside their own bound, half a bf16 ulp plus
+    :func:`attn_row_error`·2·(Σ_j p_j·|v_jd| + |o_d|) (a logit error δ
+    moves o_d by at most max δ·Σ_j p_j·|v_jd − o_d|)."""
+    exact, mass = exact_attention(q, k, v)
+    ulp = bf16_ulp(exact.float()).double()
+    err = (got.double() - exact).abs()
+    over, plain_over = err > ulp, (plain.double() - exact).abs() > ulp
+    bound = ulp / 2 + attn_row_error(q, k).double() * 2 * (mass
+                                                           + exact.abs())
+    return {"over_one_bf16_ulp_f64": int(over.sum()),
+            "plain_over_one_bf16_ulp_f64": int(plain_over.sum()),
+            "over_alone": int((over & ~plain_over).sum()),
+            "plain_over_alone": int((plain_over & ~over).sum()),
+            "outside_element_bound_f64": int((err > bound).sum())}
 
 
 def oracle_attention(q, k, v):
@@ -577,28 +611,28 @@ class Check:
 CUDA_REPORT: dict = {}
 
 
-def short_kernel_name(mangled: str) -> str:
-    """``k3_scan_kernel<float>`` from a mangled kernel name."""
-    m = re.search(r"\d+(k\d_[A-Za-z0-9_]+?)I(.*?)EE", mangled)
-    if not m:
-        return mangled
-    base, args = m.groups()
-    out, i = [], 0
-    while i < len(args):
-        lit = re.match(r"Li(\d+)", args[i:])
-        name = re.match(r"(\d+)", args[i:])
-        if lit:
-            out.append(lit.group(1))
-            i += lit.end()
-        elif name:
-            n = int(name.group(1))
-            out.append(args[i + name.end():i + name.end() + n].strip("_"))
-            i += name.end() + n
-        else:
-            out.append({"f": "float", "d": "double", "i": "int"}.get(
-                args[i], args[i]))
-            i += 1
-    return f"{base}<{','.join(out)}>"
+def kernel_name(demangled: str) -> str:
+    """``k3_scan_kernel<float>`` from cu++filt's
+    ``void (anonymous namespace)::k3_scan_kernel<float>(float const*, …)``
+    (``k8_flash_wgmma<128>`` from ``…k8_flash_wgmma<(int)128>(…)``)."""
+    depth = 0
+    for i in range(len(demangled) - 1, -1, -1):    # drop the parameters
+        depth += {")": 1, "(": -1}.get(demangled[i], 0)
+        if depth == 0:
+            demangled = demangled[:i] if demangled[i] == "(" else demangled
+            break
+    return demangled.rsplit("::", 1)[-1].removeprefix("void ").replace(
+        "(int)", "")
+
+
+def kernel_names(mangled) -> dict[str, str]:
+    """Mangled kernel name → :func:`kernel_name`, through cu++filt (beside
+    nvcc)."""
+    mangled = sorted(set(mangled))
+    filt = Path(_cuda.nvcc()).with_name("cu++filt")
+    out = subprocess.run([str(filt), *mangled], capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    return {m: kernel_name(d) for m, d in zip(mangled, out, strict=True)}
 
 
 def cuda_report() -> dict:
@@ -606,10 +640,11 @@ def cuda_report() -> dict:
     kernel's registers, shared memory and spills (``-Xptxas -v``); and
     the HGMMA instructions in each K8 kernel's SASS."""
     for stem, info in _cuda.BUILD_LOG.items():
+        usage = _cuda.ptxas_usage(info["ptxas"])
+        names = kernel_names(usage)
         CUDA_REPORT[stem] = {
             "nvcc_seconds": info["seconds"],
-            "kernels": {short_kernel_name(k): u for k, u in
-                        _cuda.ptxas_usage(info["ptxas"]).items()}}
+            "kernels": {names[k]: u for k, u in usage.items()}}
     cuobjdump = Path(_cuda.nvcc()).with_name("cuobjdump")
     sass = subprocess.run(
         [str(cuobjdump), "-sass", str(_cuda.library_path("flashattn"))],
@@ -617,11 +652,13 @@ def cuda_report() -> dict:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = short_kernel_name(line.split("Function :")[1].strip())
+            fn = line.split("Function :")[1].strip()
             counts[fn] = 0
         elif fn and "HGMMA" in line:
             counts[fn] += 1
-    CUDA_REPORT.setdefault("flashattn", {})["hgmma"] = counts
+    names = kernel_names(counts)
+    CUDA_REPORT.setdefault("flashattn", {})["hgmma"] = {
+        names[k]: n for k, n in counts.items()}
     return CUDA_REPORT
 
 
@@ -970,6 +1007,29 @@ def hold_attention(check, what, q, k, v, out, plain=None):
     return res
 
 
+def hold_f64(check, what, q, k, v, out, plain, noise: float = 0.0) -> dict:
+    """K8's bf16 ``out`` against the float64 result (see the tolerances):
+    every element within its own bound, and no more elements beyond one
+    bf16 ulp of it than ``plain`` has, give or take ``noise`` standard
+    deviations of that difference (√ of the elements beyond one ulp for
+    one of the two alone)."""
+    res = attn_f64_misses(out, plain, q, k, v)
+    got = res["over_one_bf16_ulp_f64"]
+    want = res["plain_over_one_bf16_ulp_f64"]
+    slack = noise * math.sqrt(res["over_alone"] + res["plain_over_alone"])
+    print(f"{what}: {got} elements beyond one bf16 ulp of the float64 "
+          f"result, the plain version {want} (allowed {want + slack:.1f}); "
+          f"{res['outside_element_bound_f64']} outside their bound",
+          flush=True)
+    check.true(f"{what}: {res['outside_element_bound_f64']} elements "
+               f"outside their bound against float64",
+               res["outside_element_bound_f64"] == 0)
+    check.true(f"{what}: {got} elements beyond one bf16 ulp of the float64 "
+               f"result, more than the plain version's {want} + "
+               f"{slack:.1f}", got <= want + slack)
+    return res
+
+
 def hold_topk(check, what, x, k, vals, idx):
     pv, pi = tk.topk_plain(x, k)
     rv, ri = ref.topk(x, k)
@@ -1025,19 +1085,8 @@ def run_phase_h(dev, check, rows):
     plain8 = fa.flash_attention_plain(q, kk, vv, causal=kw8["causal"])
     res8 = hold_attention(check, "H K8 prefill layer 0", q, kk, vv, o8,
                           plain8)
-    exact = exact_attention(q, kk, vv)
-    res8["over_one_bf16_ulp_f64"] = ulp_misses(o8, exact)
-    res8["plain_over_one_bf16_ulp_f64"] = ulp_misses(plain8, exact)
-    del exact
-    print(f"H K8 prefill layer 0: {res8['over_one_bf16_ulp_f64']} elements "
-          f"beyond one bf16 ulp of the float64 result, the plain version "
-          f"{res8['plain_over_one_bf16_ulp_f64']}", flush=True)
-    check.true(f"H K8 prefill layer 0: {res8['over_one_bf16_ulp_f64']} "
-               f"elements beyond one bf16 ulp of the float64 result, more "
-               f"than the plain version's "
-               f"{res8['plain_over_one_bf16_ulp_f64']}",
-               res8["over_one_bf16_ulp_f64"]
-               <= res8["plain_over_one_bf16_ulp_f64"])
+    res8.update(hold_f64(check, "H K8 prefill layer 0", q, kk, vv, o8,
+                         plain8))
     x3 = torch.nn.functional.one_hot(i7.reshape(-1).long(),
                                      cfg.n_experts).float().T.contiguous()
     got3 = ps.prefix_sum_kernel(x3)
@@ -1105,7 +1154,7 @@ def run_phase_h(dev, check, rows):
         time_ms(lambda: torch.topk(x7, k7)), kernel="K7"))
     bh, sq, d, sk = q.shape[0] * q.shape[1], q.shape[2], q.shape[3], kk.shape[2]
     pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))   # causal
-    rows.append(entry(
+    k8_row = entry(
         f"H flash_attention {tuple(q.shape)} bfloat16 causal (prefill)",
         launches["K8"], res8["max_abs_err_plain"],
         time_ms(lambda: fa.K8(q, kk, vv)),
@@ -1113,7 +1162,8 @@ def run_phase_h(dev, check, rows):
         4 * q.numel() * q.element_size(), 4 * bh * pairs * d,
         time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kk, vv, is_causal=True)),
-        kernel="K8", peak="bf16 tensor", aligned_copies=k8_copies, **res8))
+        kernel="K8", peak="bf16 tensor", aligned_copies=k8_copies, **res8)
+    rows.append(k8_row)
     rows.append(entry(
         f"H prefix_sum {tuple(x3.shape)} float32 (router slots, prefill)",
         launches["K3"], max_abs(got3, plain3),
@@ -1142,6 +1192,18 @@ def run_phase_h(dev, check, rows):
             for s in (shape_q[:2] + (sq_,) + shape_q[3:], shape_q, shape_q))
         hold_attention(check, f"H K8 {case}", q, kk, vv, fa.K8(q, kk, vv))
         del q, kk, vv
+    # the prefill's shape at unit-scale logits, where softmax rows are
+    # spread and p·v's roundings show (the path's ~10³ logits make rows
+    # nearly one-hot)
+    q, kk, vv = (torch.from_numpy(rng.standard_normal(
+        shape_q, dtype=np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    o8, plain8 = fa.K8(q, kk, vv), fa.flash_attention_plain(q, kk, vv)
+    what = "H K8 causal bfloat16 unit-scale logits"
+    k8_row["unit_scale_logits"] = hold_attention(check, what, q, kk, vv, o8,
+                                                 plain8)
+    k8_row["unit_scale_logits"].update(hold_f64(
+        check, what, q, kk, vv, o8, plain8, noise=UNIT_SCALE_NOISE))
+    del q, kk, vv, o8, plain8
 
 
 def main() -> int:

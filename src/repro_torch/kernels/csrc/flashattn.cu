@@ -36,22 +36,27 @@
 //    the 64 B and 32 B swizzles). TMA fills rows past the end with zeros.
 //  * s = q·kᵀ: wgmma m64n128k16, q and k from shared memory (K-major,
 //    descriptors matching TMA's swizzle), fp32 accumulators. bf16 products
-//    are exact in fp32, so only the summation order differs from fp32 FMAs.
+//    are exact in fp32; the tensor cores sum them in an order of their own
+//    and round the sums toward zero.
 //  * The online softmax runs on the accumulator fragment in registers (fp32
 //    m, l and the rescale), the row reductions over each quad of lanes.
-//  * o += p·v: wgmma m64nDk16 with A = p from registers (the accumulator
-//    fragment re-packed as bf16 A fragments) and B = the v tile in shared
-//    memory read through the transpose flag (v is stored with D
-//    contiguous). p goes in as three bf16 terms, p1 = bf16(p),
+//  * o += p·v: wgmma m64nNk16 (N = min(D, 64)) with A = p from registers
+//    (the accumulator fragment re-packed as bf16 A fragments) and B = the v
+//    tile in shared memory read through the transpose flag (v is stored
+//    with D contiguous). p goes in as three bf16 terms, p1 = bf16(p),
 //    p2 = bf16(p - p1) and p3 = bf16(p - p1 - p2) (the differences are
-//    exact in fp32), in three wgmmas into the same accumulator. Each term
-//    leaves at most 2^-8 of what it splits: p1 alone errs by up to 2^-8·p
-//    (2^-8·max|v| in the output), p1 + p2 by 2^-16·p, all three by
-//    2^-24·p, fp32's own rounding. Two terms stay inside the fp32 bound
-//    but not at fp32's accuracy: at unit-scale logits they leave more
-//    outputs beyond one bf16 ulp of the float64 result than the fp32
-//    plain version does (tests/test_torch_flashattn.py). It costs 2× the
-//    algorithm's tensor-core work (q·kᵀ once, p·v three times).
+//    exact in fp32). Each term leaves at most 2^-8 of what it splits: p1
+//    alone errs by up to 2^-8·p (2^-8·max|v| in the output), p1 + p2 by
+//    2^-16·p, all three by 2^-24·p, fp32's own rounding. A k-step's three
+//    wgmmas (16 keys) go into a fresh fp32 accumulator, which is then added
+//    to the output's in fp32, rounding to nearest: the tensor cores round
+//    each sum toward zero at the magnitude of their accumulator, and
+//    chained over the row's keys those roundings lean one way at the
+//    running total's magnitude. Chained, three terms left 4× as many
+//    outputs beyond one bf16 ulp of the float64 result as the fp32 plain
+//    version at unit-scale logits (experiments/k8_accumulation.py). It
+//    costs 2× the algorithm's tensor-core work (q·kᵀ once, p·v three
+//    times) and D/2 fp32 adds a thread a k-step.
 //  * l is summed from the fp32 p; out = acc / max(l, 1e-30), rounded to
 //    bf16 and stored through o's strides; rows past sq are not written.
 //
@@ -84,10 +89,10 @@ constexpr size_t smem_bytes() {
          (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-k8_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int heads,
+k8_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int heads,
                 int sq, int sk, int n_qtiles, Strides qs, Strides ks,
                 Strides vs, Strides os, float scale, int causal) {
   constexpr int LD = D + 1;
@@ -103,10 +108,10 @@ k8_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t bh = blockIdx.x / n_qtiles;
   const int q0 = (int)(blockIdx.x % n_qtiles) * BQ;
   const int64_t b = bh / heads, h = bh % heads;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  T* ob = o + b * os.b + h * os.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  float* ob = o + b * os.b + h * os.h;
   const int tid = threadIdx.x, r = tid >> 2, g = tid & 3;
   const int qi = q0 + r;
   const int off = sk - sq;                 // bottom-right causal alignment
@@ -197,38 +202,38 @@ k8_flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           int64_t batch, int heads, int sq, int sk, Strides qs, Strides ks,
-           Strides vs, Strides os, float scale, int causal, cudaStream_t st) {
+template <int D>
+int fma_launch(const void* q, const void* k, const void* v, void* o,
+               int64_t batch, int heads, int sq, int sk, Strides qs,
+               Strides ks, Strides vs, Strides os, float scale, int causal,
+               cudaStream_t st) {
   constexpr size_t bytes = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      k8_flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k8_flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   int n_qtiles = (sq + BQ - 1) / BQ;
   int64_t blocks = batch * heads * n_qtiles;
   if (blocks >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
-  k8_flash_kernel<T, D><<<(unsigned)blocks, THREADS, bytes, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, heads, sq, sk, n_qtiles,
-      qs, ks, vs, os, scale, causal);
+  k8_flash_kernel<D><<<(unsigned)blocks, THREADS, bytes, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, heads,
+      sq, sk, n_qtiles, qs, ks, vs, os, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(int d, const void* q, const void* k, const void* v, void* o,
-             int64_t batch, int heads, int sq, int sk, Strides qs,
-             Strides ks, Strides vs, Strides os, float scale, int causal,
-             cudaStream_t st) {
+int fma_launch_d(int d, const void* q, const void* k, const void* v,
+                 void* o, int64_t batch, int heads, int sq, int sk,
+                 Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                 int causal, cudaStream_t st) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, batch, heads, sq, sk, qs, ks,
-                                  vs, os, scale, causal, st);
-    case 32: return launch<T, 32>(q, k, v, o, batch, heads, sq, sk, qs, ks,
-                                  vs, os, scale, causal, st);
-    case 64: return launch<T, 64>(q, k, v, o, batch, heads, sq, sk, qs, ks,
-                                  vs, os, scale, causal, st);
-    case 128: return launch<T, 128>(q, k, v, o, batch, heads, sq, sk, qs,
-                                    ks, vs, os, scale, causal, st);
+    case 16: return fma_launch<16>(q, k, v, o, batch, heads, sq, sk, qs, ks,
+                                   vs, os, scale, causal, st);
+    case 32: return fma_launch<32>(q, k, v, o, batch, heads, sq, sk, qs, ks,
+                                   vs, os, scale, causal, st);
+    case 64: return fma_launch<64>(q, k, v, o, batch, heads, sq, sk, qs, ks,
+                                   vs, os, scale, causal, st);
+    case 128: return fma_launch<128>(q, k, v, o, batch, heads, sq, sk, qs,
+                                     ks, vs, os, scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -330,12 +335,9 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+__device__ __forceinline__ void fence_frag(uint32_t (&r)[4]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[j]) :: "memory");
 }
 
 // d (64×128, fp32) (+)= a·b: a and b bf16 in shared memory, K-major
@@ -367,11 +369,11 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// d (64×16, fp32) += a·b: a bf16 in registers, b bf16 in shared
+// d (64×16, fp32) (+)= a·b: a bf16 in registers, b bf16 in shared
 // memory, MN-major (the transpose flag set)
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
                                               const uint32_t (&a)[4],
-                                              uint64_t b) {
+                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
@@ -379,14 +381,14 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// d (64×32, fp32) += a·b: a bf16 in registers, b bf16 in shared
+// d (64×32, fp32) (+)= a·b: a bf16 in registers, b bf16 in shared
 // memory, MN-major (the transpose flag set)
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                               const uint32_t (&a)[4],
-                                              uint64_t b) {
+                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
@@ -396,14 +398,14 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
         "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// d (64×64, fp32) += a·b: a bf16 in registers, b bf16 in shared
+// d (64×64, fp32) (+)= a·b: a bf16 in registers, b bf16 in shared
 // memory, MN-major (the transpose flag set)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                               const uint32_t (&a)[4],
-                                              uint64_t b) {
+                                              uint64_t b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -418,47 +420,17 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
-// d (64×128, fp32) += a·b: a bf16 in registers, b bf16 in shared
-// memory, MN-major (the transpose flag set)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (D == 16) wgmma_rs_n16(o, a, b);
-  else if constexpr (D == 32) wgmma_rs_n32(o, a, b);
-  else if constexpr (D == 64) wgmma_rs_n64(o, a, b);
-  else wgmma_rs_n128(o, a, b);
+// d (64×N) (+)= a·b with A from registers, N = 16, 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b, scale_d);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b, scale_d);
+  else wgmma_rs_n64(d, a, b, scale_d);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -489,6 +461,7 @@ k8_flash_wgmma(const __grid_constant__ CUtensorMap qmap,
   constexpr int NO = D / 2;                // output values of a thread
   constexpr int KSTEPS_QK = D / 16;
   constexpr int KSTEPS_PV = BN / 16;
+  constexpr int NT = D < 64 ? D : 64;      // output columns of a p·v wgmma
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = (unsigned char*)(((uintptr_t)smem_raw + 1023) &
                                          ~(uintptr_t)1023);
@@ -621,40 +594,48 @@ k8_flash_wgmma(const __grid_constant__ CUtensorMap qmap,
     // p2 = bf16(p - p1), p3 = bf16(p - p1 - p2) (the differences are exact
     // in fp32), each an A fragment taken from the accumulator fragment:
     // k-step kk takes columns 16kk..16kk+15, its registers hold (row qi0,
-    // cols 0-7), (qi1, 0-7), (qi0, 8-15), (qi1, 8-15). Two halves of four
-    // k-steps each keep the fragments' registers in bounds.
+    // cols 0-7), (qi1, 0-7), (qi0, 8-15), (qi1, 8-15). A k-step's three
+    // products go into a fresh accumulator t, NT output columns a wgmma,
+    // and t is added to acc in fp32 (see the design: the tensor cores
+    // round their sums toward zero, at the magnitude of their accumulator).
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      constexpr int KH = KSTEPS_PV / 2;
-      uint32_t a1[KH][4], a2[KH][4], a3[KH][4];
+    for (int kk = 0; kk < KSTEPS_PV; ++kk) {
+      uint32_t a1[4], a2[4], a3[4];
 #pragma unroll
-      for (int kq = 0; kq < KH; ++kq)
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        float x0 = s[i], x1 = s[i + 1];
+        a1[r] = pack_bf16_rest(x0, x1);
+        a2[r] = pack_bf16_rest(x0, x1);
+        a3[r] = pack_bf16(x0, x1);
+      }
+      float t[D / NT][NT / 2];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int kk = half * KH + kq;
-          const int i = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
-          float x0 = s[i], x1 = s[i + 1];
-          a1[kq][r] = pack_bf16_rest(x0, x1);
-          a2[kq][r] = pack_bf16_rest(x0, x1);
-          a3[kq][r] = pack_bf16(x0, x1);
-        }
-      fence_regs(acc);
-      fence_regs(a1);
-      fence_regs(a2);
-      fence_regs(a3);
+      for (int n = 0; n < D / NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) t[n][i] = 0.f;
+        fence_regs(t[n]);
+      }
+      fence_frag(a1);
+      fence_frag(a2);
+      fence_frag(a3);
       wg_fence();
 #pragma unroll
-      for (int kq = 0; kq < KH; ++kq) {
-        const int kk = half * KH + kq;
-        const uint64_t bd = desc(v_s(st) + kk * 16 * L::ROWB, L::KV_PANEL,
-                                 L::GROUP, L::SWZ);
-        wgmma_pv<D>(acc, a1[kq], bd);
-        wgmma_pv<D>(acc, a2[kq], bd);
-        wgmma_pv<D>(acc, a3[kq], bd);
+      for (int n = 0; n < D / NT; ++n) {
+        const uint64_t bd = desc(v_s(st) + n * L::KV_PANEL + kk * 16 * L::ROWB,
+                                 L::KV_PANEL, L::GROUP, L::SWZ);
+        wgmma_pv<NT>(t[n], a1, bd, 0);
+        wgmma_pv<NT>(t[n], a2, bd, 1);
+        wgmma_pv<NT>(t[n], a3, bd, 1);
       }
       wg_commit();
       wg_wait0();
-      fence_regs(acc);
+#pragma unroll
+      for (int n = 0; n < D / NT; ++n) {
+        fence_regs(t[n]);
+#pragma unroll
+        for (int i = 0; i < NT / 2; ++i) acc[n * NT / 2 + i] += t[n][i];
+      }
     }
 
     bar_arrive(empty(st));                 // this thread is done with it
@@ -793,8 +774,8 @@ extern "C" int k8_flash_attention(
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0:
-      return launch_d<float>(d, q, k, v, o, batch, heads, sq, sk, qs, ks, vs,
-                             os, scale, causal, st);
+      return fma_launch_d(d, q, k, v, o, batch, heads, sq, sk, qs, ks, vs,
+                          os, scale, causal, st);
     case 2:
       return tc::launch_d(d, q, k, v, o, batch, heads, sq, sk, qs, ks, vs, os,
                           scale, causal, st);

@@ -44,10 +44,11 @@
 //      for every type, so its roundings (at most 2^-53 relative) are
 //      negligible against float32's and do not grow with its depth, which
 //      depends on timing; the tile's exclusive prefix is rounded to A once.
-//      A tile's state (scratch the wrapper zero-fills, 8 bytes a tile) is
-//      one word: the double value with its two lowest mantissa bits
-//      replaced by the status (0 invalid, 1 aggregate, 2 inclusive), so a
-//      single store publishes both and a single load reads both.
+//      A tile's state (scratch the wrapper zero-fills, 8 bytes a tile, as
+//      k3_scratch_words says; the walk needs none) is one word: the double
+//      value with its two lowest mantissa bits replaced by the status
+//      (0 invalid, 1 aggregate, 2 inclusive), so a single store publishes
+//      both and a single load reads both.
 //    - walk (rows >= 2 × SMs, as the MoE router's 384 rows): one block a
 //      row, its tiles in order with the running total in A, the next
 //      tile's chunks loaded into registers while the current one is
@@ -381,29 +382,52 @@ k3_walk_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t rows,
   }
 }
 
+// The card's SMs, queried once.
+int card_sms(int* sms) {
+  static int cached = 0;
+  if (!cached) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  *sms = cached;
+  return 0;
+}
+
+// The zeroed 8-byte scratch words the launch of a (rows, cols) operand
+// needs: for the look-back the tile counter and one state word a tile, for
+// the walk (rows >= 2 × SMs and more than one tile a row) none.
+int scratch_words(int64_t rows, int64_t cols, int64_t* words) {
+  int sms = 0;
+  if (int err = card_sms(&sms)) return err;
+  const int64_t tpr = (cols + TILE - 1) / TILE;
+  *words = rows >= 2 * sms && tpr > 1 ? 0 : 1 + rows * tpr;
+  return 0;
+}
+
 template <typename T>
 int launch(const void* x, void* out, int64_t rows, int64_t cols,
            int64_t stride, void* scratch, cudaStream_t s) {
   const int64_t tpr = (cols + TILE - 1) / TILE;
   const int64_t tiles = rows * tpr;
   if (tiles >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
-  static int sms = 0;                          // the card's SMs
-  if (!sms) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+  int64_t words = 0;
+  if (int err = scratch_words(rows, cols, &words)) return err;
   const int vec_in = ((uintptr_t)x % 16 == 0) &&
                      ((stride * (int64_t)sizeof(T)) % 16 == 0);
   const int vec_out = ((uintptr_t)out % 16 == 0) &&
                       ((cols * (int64_t)sizeof(T)) % 16 == 0);
-  if (rows >= 2 * sms && tpr > 1) {
+  if (words == 0) {
+    int sms = 0;
+    card_sms(&sms);                            // cached by scratch_words
     const int64_t blocks = rows < 4 * sms ? rows : 4 * sms;
     k3_walk_kernel<T><<<(unsigned)blocks, THREADS, 0, s>>>(
         (const T*)x, (T*)out, rows, cols, stride, tpr, vec_in, vec_out);
   } else {
+    if (!scratch) return (int)cudaErrorInvalidValue;
     // scratch: [counter][state × tiles], 8 bytes each
     unsigned long long* base = (unsigned long long*)scratch;
     k3_scan_kernel<T><<<(unsigned)tiles, THREADS, 0, s>>>(
@@ -415,10 +439,16 @@ int launch(const void* x, void* out, int64_t rows, int64_t cols,
 
 }  // namespace
 
+// *words: how many zeroed 8-byte words k3_prefix_sum needs as scratch for
+// a (rows, cols) operand (0: it may be null).
+extern "C" int k3_scratch_words(int64_t rows, int64_t cols, int64_t* words) {
+  if (rows < 0 || cols < 0) return (int)cudaErrorInvalidValue;
+  return scratch_words(rows, cols, words);
+}
+
 // x (rows, cols) with row stride `stride` (elements) and a unit column
-// stride; out (rows, cols) contiguous; scratch: (1 + tiles) zeroed 8-byte
-// words, tiles = rows·⌈cols / 4096⌉. dtype codes: 0 float32, 1 float64,
-// 2 bfloat16, 3 float16.
+// stride; out (rows, cols) contiguous; scratch: k3_scratch_words zeroed
+// 8-byte words. dtype codes: 0 float32, 1 float64, 2 bfloat16, 3 float16.
 extern "C" int k3_prefix_sum(int dtype, const void* x, void* out,
                              int64_t rows, int64_t cols, int64_t stride,
                              void* scratch, void* stream) {

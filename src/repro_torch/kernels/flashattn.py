@@ -13,7 +13,9 @@ transposed view without a copy, and writes its output into a (B, S, H, D)
 buffer returned as the (B, H, S, D) view. In bfloat16 (the LM's path) it
 runs on the tensor cores: one block per (batch·head, 128-row q tile), q
 and 128-row k/v tiles loaded by TMA, ``wgmma`` for q·kᵀ and for p·v with p
-split into three bf16 terms (p1 + p2 + p3, error ≤ 2⁻²⁴·p). TMA needs
+split into three bf16 terms (p1 + p2 + p3, error ≤ 2⁻²⁴·p), each 16 keys'
+products summed apart and added to the output's accumulator in fp32 (the
+tensor cores round their sums toward zero). TMA needs
 16-byte-aligned bases and strides: an operand that has neither is copied
 once with ``.contiguous()`` inside K8 (counted in ``K8.aligned_copies``).
 In float32 it computes the products as fp32 FMAs (the tensor cores would

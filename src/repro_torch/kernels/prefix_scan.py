@@ -41,6 +41,7 @@ PyTorch versions of the same blocked walk (Hillis–Steele inside each
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -175,6 +176,8 @@ _K3_SIGNATURES = {
     # (dtype, x, out, rows, cols, stride, scratch, stream)
     "k3_prefix_sum": (_cuda.I32, _cuda.P, _cuda.P, _cuda.I64, _cuda.I64,
                       _cuda.I64, _cuda.P, _cuda.P),
+    # (rows, cols, words out)
+    "k3_scratch_words": (_cuda.I64, _cuda.I64, ctypes.POINTER(_cuda.I64)),
 }
 
 
@@ -221,15 +224,20 @@ class PrefixSumKernel:
         out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
         if x.numel() == 0:
             return out
-        tiles = rows * -(-cols // TILE_ELEMS)     # K3's tiles: 4096 columns
-        # the tile counter, then each tile's state word: one zero fill,
-        # 8 bytes a tile
-        scratch = torch.zeros(1 + tiles, dtype=torch.int64, device=x.device)
         lib = _cuda.load("prefix_scan", _K3_SIGNATURES)
         with torch.cuda.device(x.device):
+            # the look-back's tile counter and state words, zero-filled; the
+            # walk takes none (the launcher chooses, from the shape)
+            words = _cuda.I64()
+            _cuda.check(lib, lib.k3_scratch_words(rows, cols,
+                                                  ctypes.byref(words)),
+                        "K3 scratch")
+            scratch = (torch.zeros(words.value, dtype=torch.int64,
+                                   device=x.device) if words.value else None)
             err = lib.k3_prefix_sum(
                 code, x.data_ptr(), out.data_ptr(), rows, cols, x.stride(0),
-                scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                None if scratch is None else scratch.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
         _cuda.check(lib, err, "K3 prefix_sum")
         self.launches += 1
         return out

@@ -156,8 +156,10 @@ def k8_bf16_emulated(q, k, v, causal=True, block_k=128, terms=3):
     """K8's bf16 instance: q·kᵀ of bf16 values summed in fp32 (the products
     are exact), the online softmax in fp32 over 128-key tiles, p·v with p
     split into ``terms`` bf16 terms (p1 = bf16(p), p2 = bf16(p - p1),
-    p3 = bf16(p - p1 - p2)), their products into one fp32 accumulator, l
-    summed from the fp32 p, out = acc / max(l, 1e-30) rounded to bf16."""
+    p3 = bf16(p - p1 - p2)), each 16 keys' products summed apart and then
+    added to the fp32 accumulator, l summed from the fp32 p,
+    out = acc / max(l, 1e-30) rounded to bf16 (in fp32 rounding to
+    nearest: the card's tensor cores round their sums toward zero)."""
     *lead, sq, d = q.shape
     sk = k.shape[-2]
     qf, kf, vf = (t.float().reshape(-1, t.shape[-2], d) for t in (q, k, v))
@@ -179,11 +181,13 @@ def k8_bf16_emulated(q, k, v, causal=True, block_k=128, terms=3):
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha
-        rest = p
-        for _ in range(terms):
-            term = rest.to(torch.bfloat16).float()
-            acc = acc + torch.matmul(term, vt)
-            rest = rest - term
+        for c in range(0, block_k, 16):           # a k-step's 16 keys
+            rest, t = p[..., c:c + 16], 0.0
+            for _ in range(terms):
+                term = rest.to(torch.bfloat16).float()
+                t = t + torch.matmul(term, vt[:, c:c + 16])
+                rest = rest - term
+            acc = acc + t
         m = m_new
     out = (acc / torch.clamp_min(l, 1e-30)).to(torch.bfloat16)
     return out.reshape(*lead, sq, d)
@@ -216,10 +220,12 @@ def test_k8_bf16_arithmetic_within_the_gate(smoke, logit_scale):
     assert smoke.attn_misses(got, want, bound)[0] == 0
     plain = fa.flash_attention_plain(q, k, v)
     assert smoke.attn_misses(got, plain, bound)[0] == 0
-    # and as accurate as the plain version against float64 (chip_smoke's
+    # and against float64 each element within its own bound and no more
+    # elements beyond one bf16 ulp than the plain version (chip_smoke's
     # gate on the LM path's own inputs, whose logits are ~10^3)
-    exact = smoke.exact_attention(q, k, v)
-    assert smoke.ulp_misses(got, exact) <= smoke.ulp_misses(plain, exact)
+    res = smoke.attn_f64_misses(got, plain, q, k, v)
+    assert res["outside_element_bound_f64"] == 0
+    assert res["over_one_bf16_ulp_f64"] <= res["plain_over_one_bf16_ulp_f64"]
 
 
 def test_k8_bf16_three_terms_carry_p_to_fp32():
@@ -245,10 +251,11 @@ def test_k8_bf16_two_terms_fall_short_of_fp32(smoke):
     # plain version's (inside the bound all the same)
     q, k, v = to_torch(qkv((1, 2, 256, 128), dtype="bfloat16",
                            rng=np.random.default_rng(12)), torch.bfloat16)
-    exact = smoke.exact_attention(q, k, v)
-    plain = smoke.ulp_misses(fa.flash_attention_plain(q, k, v), exact)
+    plain = fa.flash_attention_plain(q, k, v)
     two = k8_bf16_emulated(q, k, v, terms=2)
-    assert smoke.attn_misses(two, fa.flash_attention_plain(q, k, v),
-                             smoke.attn_bound(q, k, v))[0] == 0
-    assert smoke.ulp_misses(two, exact) > plain
-    assert smoke.ulp_misses(k8_bf16_emulated(q, k, v), exact) <= plain
+    assert smoke.attn_misses(two, plain, smoke.attn_bound(q, k, v))[0] == 0
+    res = smoke.attn_f64_misses(two, plain, q, k, v)
+    assert res["outside_element_bound_f64"] == 0
+    assert res["over_one_bf16_ulp_f64"] > res["plain_over_one_bf16_ulp_f64"]
+    res = smoke.attn_f64_misses(k8_bf16_emulated(q, k, v), plain, q, k, v)
+    assert res["over_one_bf16_ulp_f64"] <= res["plain_over_one_bf16_ulp_f64"]

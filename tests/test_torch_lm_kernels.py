@@ -9,7 +9,7 @@ device. Run them on an H100 with
 
 Tolerances: K7 bit-exact (values and indices; the kernel takes the same
 selects as the plain network, ties in ascending index order). K8 (in
-bfloat16 on the tensor cores, p·v with p split into two bf16 terms) per
+bfloat16 on the tensor cores, p·v with p split into three bf16 terms) per
 row within the fp32 summation bound of two orders,
 ``(D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps)·2·max|v|``, and in
 bfloat16 that bound plus one bfloat16 ulp (chip_smoke.attn_misses). The
@@ -18,6 +18,7 @@ server on reduced Kimi-K2 (float32): logits within 1e-4 of their largest
 """
 import dataclasses
 import importlib.util
+import shutil
 from pathlib import Path
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 import repro_torch.kernels  # noqa: F401 — registers the ISA
 from repro_torch.configs import get_config
 from repro_torch.core import isa
+from repro_torch.kernels import _cuda
 from repro_torch.kernels import flashattn as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import topk as tk
@@ -157,6 +159,36 @@ def test_k8_launches_once_per_call(cuda):
     with isa.use("auto"):
         ops.flash_attention(x, x, x)
     assert fa.K8.launches == before + 4
+
+
+def test_k8_unit_scale_check_rejects_two_terms_of_p(cuda, smoke, tmp_path,
+                                                    monkeypatch):
+    # chip_smoke's check at the prefill's shape with unit-scale logits
+    # passes K8 and fails the same kernel with p in two bf16 terms (built
+    # from a copy of the source with the third term zeroed)
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (4, 64, 1024, 128), dtype=np.float32)).to(cuda, torch.bfloat16)
+        for _ in range(3))
+    plain = fa.flash_attention_plain(q, k, v)
+    verdicts = []
+    for terms in (3, 2):
+        if terms == 2:
+            src = (_cuda.CSRC / "flashattn.cu").read_text()
+            third = "a3[r] = pack_bf16(x0, x1);"
+            assert src.count(third) == 1
+            shutil.copytree(_cuda.CSRC, tmp_path / "csrc")
+            (tmp_path / "csrc" / "flashattn.cu").write_text(
+                src.replace(third, "a3[r] = 0u;"))
+            monkeypatch.setattr(_cuda, "CSRC", tmp_path / "csrc")
+            monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+            monkeypatch.delitem(_cuda._LOADED, "flashattn")
+        check = smoke.Check()
+        smoke.hold_f64(check, f"K8, {terms} terms", q, k, v, fa.K8(q, k, v),
+                       plain, noise=smoke.UNIT_SCALE_NOISE)
+        verdicts.append(check.failures)
+    assert verdicts[0] == []
+    assert len(verdicts[1]) == 1 and "more than the plain" in verdicts[1][0]
 
 
 def test_k8_checks_on_card(cuda):

@@ -280,19 +280,25 @@ ptxas info    : Used 242 registers, used 1 barriers
 
 
 def test_ptxas_report_and_kernel_names_are_read(smoke):
-    # what chip_smoke.py reports of each CUDA source's build
+    # what chip_smoke.py reports of each CUDA source's build (the mangled
+    # names go through cu++filt on the card's machine)
     usage = _cuda.ptxas_usage(_PTXAS)
-    names = {smoke.short_kernel_name(k): u for k, u in usage.items()}
-    assert names == {
-        "k3_scan_kernel<float>": {"registers": 32, "smem_bytes": 18480,
-                                  "spill_stores": 28},
-        "k8_flash_wgmma<128>": {"registers": 242, "smem_bytes": 0,
-                                "spill_stores": 0}}
-    assert smoke.short_kernel_name(
-        "_ZN1a14k8_flash_kernelIfLi64EEEvPKT_") == "k8_flash_kernel<float,64>"
-    assert smoke.short_kernel_name(
-        "_ZN1a14k7_topk_kernelI13__nv_bfloat16EEvPKT_") \
-        == "k7_topk_kernel<nv_bfloat16>"
+    assert usage == {
+        "_ZN12_GLOBAL__N_114k3_scan_kernelIfEEvPKT_": {
+            "registers": 32, "smem_bytes": 18480, "spill_stores": 28},
+        "_ZN12_GLOBAL__N_12tc14k8_flash_wgmmaILi128EEEv14CUtensorMap_st": {
+            "registers": 242, "smem_bytes": 0, "spill_stores": 0}}
+    assert smoke.kernel_name(
+        "void (anonymous namespace)::k3_scan_kernel<float>(float const*, "
+        "float*, long, long, long, unsigned long long*, unsigned long "
+        "long*, int, int)") == "k3_scan_kernel<float>"
+    assert smoke.kernel_name(
+        "void (anonymous namespace)::tc::k8_flash_wgmma<(int)128>"
+        "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, __nv_bfloat16*, "
+        "int, int, int, int, int, (anonymous namespace)::Strides, float, "
+        "int)") == "k8_flash_wgmma<128>"
+    assert smoke.kernel_name("k7_topk_kernel<__nv_bfloat16>") \
+        == "k7_topk_kernel<__nv_bfloat16>"
 
 
 def test_library_name_follows_the_source_hash(tmp_path, monkeypatch):
