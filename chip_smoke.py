@@ -24,14 +24,21 @@ any phase fails.
 Phases (inputs from numpy with a fixed seed):
   A  c0_copy / c0_scale / c0_add / c0_triad solo at N = 2²⁶ (float32)
   B  fuse(c0_scale, c0_add) and fuse(c0_scale, c0_add, c0_copy) at N = 2²⁶
-  C  call_batch of 16 scale→add requests, 16 distinct scalars, N = 2²² each
+  C  call_batch of 16 scale→add requests, 16 distinct scalars, N = 2²² each:
+     one launch of K1's batch kernel on the items where they lie (no
+     item copied; one torch.profiler trace of the batch shows that kernel
+     and nothing else), the launch alone timed on the items in place;
+     then a ragged batch (16 items of 2²² − 1000, one of them a view at
+     storage offset 1, which alone is copied)
   D  the carried c7_absmax_scale template (examples/quickstart.py) on a
-     (4096, 16384) input
+     (4096, 16384) input; then its program's call_batch of 4 ragged
+     (1000, 16381) items
   E  the mergesort app (examples/sort_prefix_apps.py §1): 2²⁶ int32 keys
      in one row through ops.sortnet_mergesort(v[None], max_kernel_width=
-     4096) — one K5 launch (width 8), nine K6 launches (w = 8…2048), then
-     14 torch.sort levels as in the reference; plus K5 at width 64 in
-     float32 and bfloat16, and K6 alone at w = 2048
+     4096) — one K5 launch (width 8), nine K6 launches (one at each
+     w = 8…2048), then 14 torch.sort levels as in the reference; plus K5
+     at width 64 in float32 and bfloat16, and K6 alone at each of the nine
+     widths on that level's operands
   F  the prefix-sum app (§2 of the same example): ops.prefix_sum over one
      row of 2²⁶ float32 — one K3 launch
   G  the SSD inter-chunk state scan at Mamba2-1.3B's widths
@@ -60,7 +67,9 @@ Tolerances (fixed before any run):
   * multiply-add chains (triad, scale→add…): |Δ| ≤ 4·eps_f32·(|s·x| + |b|)
     elementwise — Triton contracts a·s + b into one FMA (one rounding),
     torch eager rounds twice;
-  * every call_batch item: bit-identical to its solo K1 call;
+  * every call_batch item: bit-identical to its solo K1 call (ragged,
+    misaligned and carried items too: the batch masks the tail a solo
+    call pads with zeros);
   * c7_absmax_scale: ≤ 2 ulp — Triton's fp32 ``/`` lowers to
     ``div.full.f32`` (≤ 2 ulp), torch divides with IEEE rounding;
   * sorts and merges (E): bit-exact against the plain network, the oracle
@@ -166,6 +175,8 @@ from repro_torch.models.params import DTYPES, param_specs, tree_items  # noqa: E
 SEED = 0
 N_STREAM = 1 << 26                 # 256 MiB per float32 array
 N_ITEM, N_ITEMS = 1 << 22, 16      # phase C: 16 requests of 16 MiB
+N_RAGGED = N_ITEM - 1000           # phase C's second batch: a masked tail
+CARRIED_ITEM = (1000, 16381)       # phase D's batch of 4 (ragged) items
 ABSMAX_SHAPE = (4096, 16384)       # phase D
 SCALE, TRIAD_S = 2.5, 3.0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
@@ -173,7 +184,7 @@ OPS_PER_S = {"fp32": 67e12,        # H100 SXM, FP32 outside tensor cores
              "bf16 tensor": 989e12}   # bf16 dense on the tensor cores
 N_SORT = 1 << 26                   # phase E: 256 MiB of int32 keys
 MAX_KERNEL_WIDTH = 4096            # the app's merge cut-over to torch.sort
-MERGE_W = 2048                     # phase E's K6 row: the widest merge
+MERGE_WIDTHS = tuple(8 << k for k in range(9))   # phase E's K6 levels
 N_SCAN = 1 << 26                   # phase F: 256 MiB of float32
 SSD_SHAPE = (4, 32, 64)            # phase G: (batch, chunks, heads)
 SSD_STATE = (64, 128)              # (headdim, state) of mamba2_1p3b
@@ -357,17 +368,19 @@ def phase_h(cfg, params, prompts, gen: int, mode):
 
 class Tap:
     """Inside ``with``, ``module.name`` passes every call through and keeps
-    its (args, kwargs, result) in ``calls``; it launches nothing itself."""
+    ``record(args, kwargs, result)`` of each in ``calls`` (by default the
+    triple itself); it launches nothing itself."""
 
-    def __init__(self, module, name: str):
+    def __init__(self, module, name: str, record=lambda *call: call):
         self.module, self.name, self.calls = module, name, []
+        self.record = record
 
     def __enter__(self):
         fn = self.fn = getattr(self.module, self.name)
 
         def tapped(*args, **kw):
             out = fn(*args, **kw)
-            self.calls.append((args, kw, out))
+            self.calls.append(self.record(args, kw, out))
             return out
 
         setattr(self.module, self.name, tapped)
@@ -752,14 +765,17 @@ def run_phase_c(dev, check, rows):
     scalars = batch_scalars(N_ITEMS)
     fused = isa.fuse("c0_scale", "c0_add")
     prog = fused.program
-    K1.launches = 0
+    K1.launches = K1.item_copies = 0
     with prog_mod.dispatch_stats_window() as w:
         got = phase_c(xs, bs, interpret=False)
         mixed = w.delta("batch_mixed")
-    launches = K1.launches
+    launches, copies = K1.launches, K1.item_copies
     check.true(f"C: {launches} launches for one batch, want 1",
                launches == 1)
     check.true(f"C: batch_mixed moved by {mixed}, want 1", mixed == 1)
+    check.true(f"C: {copies} items copied, want 0", copies == 0)
+    check.true("C: results share storage", len(
+        {o.untyped_storage().data_ptr() for o in got}) == N_ITEMS)
     plain = phase_c(xs, bs, interpret=True)
     errs = []
     for k, (s, x, b) in enumerate(zip(scalars, xs, bs)):
@@ -772,22 +788,49 @@ def run_phase_c(dev, check, rows):
                      fused(s, x, b, mode="ref"), fma_bound((s * x, b)))
         errs.append(max_abs(got[k], plain[k]))
     del got, plain
+    # one batch in the profiler: K1 once, and no copy, cat or pad kernel
+    kernels = device_kernels(lambda: phase_c(xs, bs, interpret=False))
+    if kernels is not None:
+        names = [name for name, _ in kernels]
+        check.true(f"C: the batch ran {names}, want one k1_batch_kernel",
+                   len(names) == 1 and "k1_batch_kernel" in names[0])
     n = N_ITEM * N_ITEMS
+    # the launch alone, on the items in place (the scalar and offset
+    # tables included)
+    br, bc = prog.negotiate_geometry(N_ITEM, xs[0].dtype)[:2]
+    per_item = [[x, b] for x, b in zip(xs, bs)]
+    launch_ms = time_ms(lambda: prog.call_items(
+        [[s] for s in scalars], per_item, block_rows=br, block_cols=bc))[0]
     x2, b2 = torch.stack(xs), torch.stack(bs)
     s2 = torch.tensor(scalars, device=dev).reshape(N_ITEMS, 1)
-    # the launch alone, on operands already stacked as call_batch stacks them
-    br, bc = prog.negotiate_geometry(N_ITEM, x2.dtype)[:2]
-    rows_item = N_ITEM // bc
-    xs2, bs2 = x2.reshape(-1, bc), b2.reshape(-1, bc)
-    launch_ms = time_ms(lambda: prog.call_blocks(
-        scalars, xs2, bs2, block_rows=br, block_cols=bc,
-        scalar_items=rows_item // br))[0]
     rows.append(entry(
         "C call_batch 16x scale+add", launches, max(errs),
         time_ms(lambda: phase_c(xs, bs, interpret=False)),
         time_ms(lambda: phase_c(xs, bs, interpret=True)),
         12 * n, 2 * n, time_ms(lambda: torch.addcmul(b2, x2, s2)),
-        launch_ms=launch_ms, block=[br, bc]))
+        launch_ms=launch_ms, block=[br, bc], item_copies=copies,
+        device_kernels=kernels))
+    del x2, b2, arrays, xs, bs, per_item
+    # a ragged batch (the tail of each item masked), one item misaligned
+    # by 4 bytes (copied alone): every item as its solo launch
+    arrays = make_inputs(SEED + 11, [N_RAGGED + 1] + [N_RAGGED] *
+                         (2 * N_ITEMS - 1), dev)
+    xs = [arrays[0][1:]] + arrays[1:N_ITEMS]          # storage offset 1
+    bs = arrays[N_ITEMS:]
+    K1.launches = K1.item_copies = 0
+    got = phase_c(xs, bs, interpret=False)
+    check.true(f"C ragged: {K1.launches} launches, want 1",
+               K1.launches == 1)
+    check.true(f"C ragged: {K1.item_copies} items copied, want 1 (the "
+               f"misaligned one)", K1.item_copies == 1)
+    for k, (s, x, b) in enumerate(zip(scalars, xs, bs)):
+        check.shaped(f"C ragged item {k}", got[k], x.shape)
+        check.exact(f"C ragged item {k} batch vs solo kernel", got[k],
+                    fused(s, x, b, mode="kernel"))
+    rows[-1]["ragged_batch"] = {"n": N_RAGGED, "items": N_ITEMS,
+                                "item_copies": K1.item_copies,
+                                "ms": time_ms(lambda: phase_c(
+                                    xs, bs, interpret=False))[0]}
 
 
 def run_phase_d(dev, check, rows):
@@ -812,18 +855,34 @@ def run_phase_d(dev, check, rows):
         8 * n, 3 * n, None, max_abs_err_ref=max_abs(got, ref),
         max_ulp_vs_plain=ulp_plain, max_ulp_vs_ref=ulp_ref,
         block=[ABSMAX.block_rows, ABSMAX.block_cols]))
+    del x, got, plain, ref
+    # the same program's coalesced batch: 4 ragged items, each as its
+    # solo call (the carry runs along a row; only a tail is masked)
+    prog = ABSMAX.program()
+    items = [(t,) for t in make_inputs(SEED + 12, [CARRIED_ITEM] * 4, dev)]
+    K1.launches = 0
+    got = prog.call_batch(items)
+    check.true(f"D batch: {K1.launches} launches, want 1",
+               K1.launches == 1)
+    for k, ((x,), out) in enumerate(zip(items, got)):
+        check.shaped(f"D batch item {k}", out, x.shape)
+        check.exact(f"D batch item {k} vs solo kernel", out, prog(x))
 
 
 def run_phase_e(dev, check, rows):
     v = sort_keys(SEED + 4, N_SORT, dev)
     K5.launches = K6.launches = 0
-    got = phase_e(v, "kernel")
+    with Tap(sn, "K6", record=lambda args, kw, out: args[2]) as level:
+        got = phase_e(v, "kernel")
     launches = {"K5": K5.launches, "K6": K6.launches}
     check.true(f"E: {launches['K5']} K5 launches, want 1",
                launches["K5"] == 1)
     check.true(f"E: {launches['K6']} K6 launches, want 9",
                launches["K6"] == 9)
     check.exact("E mergesort app vs torch.sort", got, torch.sort(v).values)
+    check.true(f"E: K6 ran at widths {level.calls}, want one launch at "
+               f"each of {list(MERGE_WIDTHS)}",
+               level.calls == list(MERGE_WIDTHS))
     del got
     app = time_ms(lambda: phase_e(v, "kernel"), reps=10)
     lib = time_ms(lambda: torch.sort(v), reps=10)
@@ -863,25 +922,29 @@ def run_phase_e(dev, check, rows):
             **(app_row if on_app else {})))
         del got, plain
     del f32
-    # K6 alone on the app's operands at its widest level (w = 2048)
-    x = torch.sort(v.view(-1, MERGE_W)).values.view(-1, 2, MERGE_W)
-    a, b = x[:, 0], x[:, 1]
-    lo, hi = sn.merge_sorted_kernel(a, b, width=MERGE_W)
-    plo, phi = sn.merge_sorted_kernel(a, b, width=MERGE_W, interpret=True)
-    rlo, rhi = ref.merge_sorted(a, b, MERGE_W)
-    for half, got, plain, want in (("lo", lo, plo, rlo), ("hi", hi, phi, rhi)):
-        check.exact(f"E K6 w={MERGE_W} {half} kernel vs plain", got, plain)
-        check.exact(f"E K6 w={MERGE_W} {half} kernel vs ref", got, want)
-    n = x.numel()
-    rows.append(entry(
-        f"E merge_sorted int32 w{MERGE_W}", launches["K6"],
-        max(max_abs(lo, plo), max_abs(hi, phi)),
-        time_ms(lambda: sn.merge_sorted_kernel(a, b, width=MERGE_W)),
-        time_ms(lambda: sn.merge_sorted_kernel(a, b, width=MERGE_W,
-                                               interpret=True), reps=5),
-        2 * n * x.element_size(), sn.n_cas_layers(2 * MERGE_W) * n,
-        time_ms(lambda: torch.sort(x.view(-1, 2 * MERGE_W))), kernel="K6",
-        width=MERGE_W, launches_counted_in="main path"))
+    # K6 alone at each level of the app, on the level's own operands
+    for w in MERGE_WIDTHS:
+        x = torch.sort(v.view(-1, w)).values.view(-1, 2, w)
+        a, b = x[:, 0], x[:, 1]
+        lo, hi = sn.merge_sorted_kernel(a, b, width=w)
+        plo, phi = sn.merge_sorted_kernel(a, b, width=w, interpret=True)
+        rlo, rhi = ref.merge_sorted(a, b, w)
+        for half, got, plain, want in (("lo", lo, plo, rlo),
+                                       ("hi", hi, phi, rhi)):
+            check.exact(f"E K6 w={w} {half} kernel vs plain", got, plain)
+            check.exact(f"E K6 w={w} {half} kernel vs ref", got, want)
+        n = x.numel()
+        rows.append(entry(
+            f"E merge_sorted int32 w{w}", level.calls.count(w),
+            max(max_abs(lo, plo), max_abs(hi, phi)),
+            time_ms(lambda: sn.merge_sorted_kernel(a, b, width=w)),
+            time_ms(lambda: sn.merge_sorted_kernel(a, b, width=w,
+                                                   interpret=True), reps=5),
+            # a merge of 2w keys: log2(2w) layers, one compare a key
+            2 * n * x.element_size(), ((2 * w).bit_length() - 1) * n,
+            time_ms(lambda: torch.sort(x.view(-1, 2 * w))), kernel="K6",
+            width=w, launches_counted_in="main path"))
+        del x, a, b, lo, hi, plo, phi, rlo, rhi
 
 
 APP_KINDS = (("K5", "k5_sort"), ("K6", "k6_merge"), ("cat", "CatArray"),
@@ -893,30 +956,58 @@ LM_KINDS = (("K8", "k8_flash"), ("K7", "k7_topk"), ("K3", "k3_"),
             ("reduce", "reduce"))
 
 
-def device_ms_by_kind(fn, kinds) -> dict | None:
-    """Device ms of one call of ``fn`` from ``torch.profiler``, summed over
-    the kernels whose name holds each kind's word (case-insensitive; the
-    first kind that matches wins; the rest is "other"); None when the
-    profiler sees no device time."""
+def device_events(fn) -> list[tuple[str, float]] | None:
+    """(name, device ms) of each device event (kernels, copies, fills) of
+    one call of ``fn`` in a ``torch.profiler`` trace; None when the
+    profiler sees no device time. The trace runs a warm-up call first and
+    keeps only the second: a launch right after the trace starts can be
+    missing from it (K5, the mergesort app's first kernel, was)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ms = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        kind = next((k for k, word in kinds if word.lower() in e.name.lower()),
-                    "other")
-        ms[kind] += e.device_time_total / 1e3
-    if not any(ms.values()):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    events = []
+
+    def keep(prof):
+        events.extend((e.name, e.device_time_total / 1e3)
+                      for e in prof.events()
+                      if e.device_type == DeviceType.CUDA
+                      and not e.name.startswith("ProfilerStep"))
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=keep) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not any(ms for _, ms in events):
         print("torch.profiler saw no device time: breakdown not measured",
               file=sys.stderr)
         return None
+    return events
+
+
+def device_kernels(fn) -> list[tuple[str, float]] | None:
+    """The kernels among :func:`device_events` (not a memcpy or memset)."""
+    events = device_events(fn)
+    if events is None:
+        return None
+    return [(name, ms) for name, ms in events
+            if not name.startswith(("Memcpy", "Memset"))]
+
+
+def device_ms_by_kind(fn, kinds) -> dict | None:
+    """Device ms of one call of ``fn`` from ``torch.profiler``, summed over
+    the events whose name holds each kind's word (case-insensitive; the
+    first kind that matches wins; the rest is "other"); None when the
+    profiler sees no device time."""
+    events = device_events(fn)
+    if events is None:
+        return None
+    ms = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
+    for name, t in events:
+        kind = next((k for k, word in kinds if word.lower() in name.lower()),
+                    "other")
+        ms[kind] += t
     return ms
 
 

@@ -21,11 +21,24 @@ everything else off HBM:
   loop (this replaces ``pl.when(step == 0)``);
 * intermediates stay in registers (rounded to the operand dtype, as the
   reference's VMEM scratch rounds them); only the last stage stores;
-* scalars come from one ``(k_items, m)`` float32 device table; program
-  ``pid`` reads row ``pid // items_div`` — ``items_div`` is the row
-  blocks per item in a mixed-scalar batch and the whole grid otherwise,
-  so solo and batched launches run the same kernel; no host sync;
-* offsets are int64, since a stacked batch can pass 2³¹ elements.
+* scalars come from a float32 device table, no host sync: one row for
+  a solo launch, one row per item in a mixed-scalar batch, where program
+  ``pid`` reads row ``pid // items_div`` (``items_div`` the row blocks
+  per item);
+* offsets are int64, since an operand can pass 2³¹ elements;
+* a coalesced batch (``k1_batch_kernel``) reads and writes every item
+  where it lies: program ``pid`` runs row block ``pid % blocks_per_item``
+  of item ``pid // blocks_per_item``, whose address is item 0's typed
+  pointer plus an element offset from a small ``(k_items, slots)`` int64
+  table. The offsets are stored in 16-byte units and multiplied by the
+  elements per 16 bytes in the kernel, so Triton sees them as multiples
+  of a 16-byte vector (``tl.multiple_of`` says so too); the wrapper makes
+  that true by copying, alone, any item that is not contiguous or not
+  16-byte aligned (``K1.item_copies``). The tail past an item's ``n``
+  elements is masked (loads read 0, the zero padding of a solo call;
+  stores are dropped), so each item's result is bit-identical to its
+  solo launch. The table's host-to-device copy (k_items · slots · 8
+  bytes, about 10 µs) is the only work beyond the launch.
 
 Stage bodies arrive as Triton *source text* (:class:`Stage.triton_body`)
 because ``triton.jit`` reads a function's source through ``inspect``:
@@ -36,7 +49,10 @@ the generator writes one module per chain into the build directory
 :func:`emulate` is the plain PyTorch version of the same grid walk —
 vectorised across all row blocks, looping over column steps, carry set
 at step 0, per-item scalar rows — which ``interpret`` mode runs on any
-device and which the chip smoke test holds the kernel against.
+device and which the chip smoke test holds the kernel against;
+:func:`emulate_items` is the batch kernel's: the same walk over the
+items' row blocks, through the same item/row-block mapping and masked
+tail.
 """
 from __future__ import annotations
 
@@ -123,6 +139,36 @@ def emulate(stages: Sequence[Stage], n_ext: Sequence[int],
     return outs
 
 
+def emulate_items(stages: Sequence[Stage], n_ext: Sequence[int],
+                  table: torch.Tensor,
+                  items: Sequence[Sequence[torch.Tensor]],
+                  block_rows: int, block_cols: int,
+                  items_div: int) -> list[list[torch.Tensor]]:
+    """The batch kernel's grid walk in torch eager: ``items[k]`` holds item
+    k's vector operands (one shape, ``n`` elements each). Program ``pid``
+    runs row block ``rb = pid % bpi`` of item ``pid // bpi`` (``bpi`` row
+    blocks of ``block_rows × block_cols`` elements an item): it loads the
+    item's elements ``rb · block + 0 … block − 1``, 0 from ``n`` on, and
+    stores only those below ``n``. Returns item k's outputs, each a new
+    tensor of ``n`` elements."""
+    k, n = len(items), items[0][0].numel()
+    dev, dtype = items[0][0].device, items[0][0].dtype
+    bpi = -(-n // (block_rows * block_cols))
+    loaded = []
+    for slot in range(len(items[0])):
+        # (item, row block, element): program pid = item · bpi + rb
+        x = torch.zeros((k, bpi * block_rows * block_cols), dtype=dtype,
+                        device=dev)
+        for i, it in enumerate(items):
+            x[i, :n] = it[slot].reshape(-1)          # the masked load
+        loaded.append(x.view(k * bpi * block_rows, block_cols))
+    outs = emulate(stages, n_ext, table, loaded, block_rows, block_cols,
+                   items_div)
+    del loaded
+    return [[o.view(k, -1)[i, :n].clone() for o in outs]   # masked store
+            for i in range(k)]
+
+
 # ---------------------------------------------------------------------------
 # Triton source generation
 # ---------------------------------------------------------------------------
@@ -147,42 +193,13 @@ def _stage_function(st: Stage, fname: str) -> str:
     return "@triton.jit\n" + ast.unparse(fn) + "\n"
 
 
-def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int]) -> str:
-    """The Triton module for one chain: stage device functions + K1."""
-    ns = sum(st.n_scalar_in for st in stages)
+def _chain_loop(stages: Sequence[Stage], n_ext: Sequence[int], fnames,
+                load, store) -> list[str]:
+    """One column step of the chain: load the external vectors
+    (``load(i)``), run the stage functions, store (``store(j, value)``)."""
     nv = sum(n_ext)
-    no = stages[-1].n_vec_out
     last = len(stages) - 1
-    head = ["# generated by repro_torch.core.fused_kernel — do not edit",
-            "import triton", "import triton.language as tl", ""]
-    fnames = []
-    for k, st in enumerate(stages):
-        fname = f"_stage{k}_" + "".join(c if c.isalnum() else "_"
-                                        for c in st.name)
-        fnames.append(fname)
-        if st.carry_cols:
-            init = repr(str(float(st.carry_init)))       # 'inf' spells too
-            head.append(f"_CINIT{k} = tl.constexpr(float({init}))")
-        head.append(_stage_function(st, fname))
-    params = ((["S"] if ns else []) + [f"X{i}" for i in range(nv)]
-              + [f"O{i}" for i in range(no)]
-              + ["n_steps", "row_len", "items_div",
-                 "BR: tl.constexpr", "BC: tl.constexpr"])
-    body = [
-        "pid = tl.program_id(0)",
-        "rows = pid.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
-        "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
-    ]
-    if ns:
-        body.append(f"srow = S + (pid // items_div).to(tl.int64) * {ns}")
-        body += [f"s{j} = tl.load(srow + {j})" for j in range(ns)]
-    body.append("nocarry = tl.zeros((BR, 1), tl.float32)")
-    for k, st in enumerate(stages):
-        if st.carry_cols:
-            body.append(f"c{k} = tl.full((BR, {st.carry_cols}), _CINIT{k}, "
-                        f"tl.{dtype_name(st.carry_dtype)})")
-    loop = ["offs = base + step * BC"]
-    loop += [f"x{i} = tl.load(X{i} + offs)" for i in range(nv)]
+    loop = [f"x{i} = {load(i)}" for i in range(nv)]
     prev: list = []
     for k, (st, (ss, vs)) in enumerate(zip(stages, _split(stages, n_ext))):
         args = ([f"s{j}" for j in range(ss.start, ss.stop)] + prev
@@ -197,9 +214,85 @@ def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int]) -> str:
         if k < last:
             loop += [f"{o} = {o}.to(X0.dtype.element_ty)" for o in outs]
         prev = outs
-    loop += [f"tl.store(O{j} + offs, {o}.to(O{j}.dtype.element_ty))"
-             for j, o in enumerate(prev)]
-    lines = head + ["@triton.jit", f"def k1_kernel({', '.join(params)}):"]
+    loop += [store(j, o) for j, o in enumerate(prev)]
+    return loop
+
+
+def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int],
+                  batch: bool = False) -> str:
+    """The Triton module for one chain: stage device functions and K1 —
+    ``k1_kernel`` on whole-block 2-D operands, or with ``batch``
+    ``k1_batch_kernel`` on the items of a coalesced batch in place."""
+    ns = sum(st.n_scalar_in for st in stages)
+    nv = sum(n_ext)
+    no = stages[-1].n_vec_out
+    head = ["# generated by repro_torch.core.fused_kernel — do not edit",
+            "import triton", "import triton.language as tl", ""]
+    fnames = []
+    for k, st in enumerate(stages):
+        fname = f"_stage{k}_" + "".join(c if c.isalnum() else "_"
+                                        for c in st.name)
+        fnames.append(fname)
+        if st.carry_cols:
+            init = repr(str(float(st.carry_init)))       # 'inf' spells too
+            head.append(f"_CINIT{k} = tl.constexpr(float({init}))")
+        head.append(_stage_function(st, fname))
+    params = ((["S"] if ns else []) + [f"X{i}" for i in range(nv)]
+              + [f"O{i}" for i in range(no)])
+    if batch:
+        # T: (k_items, nv + no) int64, each item's offset from item 0's
+        # pointer per slot in units of VEC elements (16 bytes)
+        params += ["T", "n_units", "n_steps", "row_len", "items_div",
+                   "blocks_per_item", "BR: tl.constexpr", "BC: tl.constexpr",
+                   "VEC: tl.constexpr", "NUNIT: tl.constexpr",
+                   "RAGGED: tl.constexpr"]
+        body = [
+            "pid = tl.program_id(0)",
+            "item = pid // blocks_per_item",
+            "rb = pid - item * blocks_per_item",
+            "rows = rb.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
+            "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
+            f"trow = T + item.to(tl.int64) * {nv + no}",
+        ]
+        body += [f"xo{i} = tl.multiple_of(tl.load(trow + {i}) * VEC, VEC)"
+                 for i in range(nv)]
+        body += [f"oo{j} = tl.multiple_of(tl.load(trow + {nv + j}) * VEC, "
+                 f"VEC)" for j in range(no)]
+        # n_units · NUNIT: NUNIT = VEC when VEC divides n (below 2³¹), so
+        # the mask keeps 16-byte vectors whole
+        body += ["n_valid = n_units * NUNIT",
+                 "zero = 0 if RAGGED else None"]
+        pre = ["mask = offs < n_valid if RAGGED else None"]
+        load = (lambda i: f"tl.load(X{i} + xo{i} + offs, mask=mask, "
+                          f"other=zero)")
+        store = (lambda j, o: f"tl.store(O{j} + oo{j} + offs, "
+                              f"{o}.to(O{j}.dtype.element_ty), mask=mask)")
+        name = "k1_batch_kernel"
+    else:
+        params += ["n_steps", "row_len", "BR: tl.constexpr",
+                   "BC: tl.constexpr"]
+        body = [
+            "pid = tl.program_id(0)",
+            "rows = pid.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
+            "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
+        ]
+        pre = []
+        load = lambda i: f"tl.load(X{i} + offs)"                # noqa: E731
+        store = (lambda j, o: f"tl.store(O{j} + offs, "
+                              f"{o}.to(O{j}.dtype.element_ty))")
+        name = "k1_kernel"
+    if ns:
+        body.append(f"srow = S + (pid // items_div).to(tl.int64) * {ns}"
+                    if batch else "srow = S")
+        body += [f"s{j} = tl.load(srow + {j})" for j in range(ns)]
+    body.append("nocarry = tl.zeros((BR, 1), tl.float32)")
+    for k, st in enumerate(stages):
+        if st.carry_cols:
+            body.append(f"c{k} = tl.full((BR, {st.carry_cols}), _CINIT{k}, "
+                        f"tl.{dtype_name(st.carry_dtype)})")
+    loop = (["offs = base + step * BC"] + pre
+            + _chain_loop(stages, n_ext, fnames, load, store))
+    lines = head + ["@triton.jit", f"def {name}({', '.join(params)}):"]
     lines += ["    " + ln for ln in body]
     lines.append("    for step in range(0, n_steps):")
     lines += ["        " + ln for ln in loop]
@@ -241,25 +334,58 @@ def check_cuda(tensors: Sequence[torch.Tensor], what: str = "K1") -> None:
                 f"mode='interpret' or mode='ref'")
 
 
+def place_items(items: Sequence[Sequence[torch.Tensor]]
+                ) -> tuple[list[list[torch.Tensor]], int]:
+    """The batch kernel's operands: each item's vectors flat, contiguous
+    and 16-byte aligned, as the kernel assumes. A vector that is not is
+    copied alone; returns (the operands, the number of copies)."""
+    v0 = items[0][0]
+    ops, copies = [], 0
+    for vecs in items:
+        row = []
+        for v in vecs:
+            if v.dtype != v0.dtype or v.numel() != v0.numel():
+                raise ValueError("K1 batch items need vector operands of "
+                                 "one dtype and size")
+            if not v.is_contiguous() or v.data_ptr() % 16:
+                v = v.contiguous() if not v.is_contiguous() else v.clone()
+                copies += 1
+            row.append(v.view(-1))
+        ops.append(row)
+    return ops, copies
+
+
+def item_offsets(rows: Sequence[Sequence[torch.Tensor]]) -> list[list[int]]:
+    """The batch kernel's table: per item, each slot's distance from item
+    0's tensor in that slot, in 16-byte units (every tensor 16-byte
+    aligned)."""
+    return [[(t.data_ptr() - t0.data_ptr()) // 16
+             for t, t0 in zip(row, rows[0])] for row in rows]
+
+
 class K1Kernel:
     """The K1 wrapper: generates, loads and launches the Triton kernel.
-    ``launches`` counts kernel launches, and only those."""
+    ``launches`` counts kernel launches, and only those; ``item_copies``
+    counts the batch operands copied because they were not contiguous or
+    not 16-byte aligned."""
 
     def __init__(self):
         self.launches = 0
+        self.item_copies = 0
 
     @staticmethod
-    def compile(stages: Sequence[Stage], n_ext: Sequence[int]):
-        """(the chain's ``k1_kernel`` JIT function, whether this call
-        generated its module). Triton compiles the function per block
-        shape and dtype at its first launch."""
-        mod, fresh = load_module(kernel_source(stages, n_ext))
-        return mod.k1_kernel, fresh
+    def compile(stages: Sequence[Stage], n_ext: Sequence[int],
+                batch: bool = False):
+        """(the chain's ``k1_kernel`` — with ``batch`` its
+        ``k1_batch_kernel`` — JIT function, whether this call generated
+        its module). Triton compiles the function per block shape and
+        dtype at its first launch."""
+        mod, fresh = load_module(kernel_source(stages, n_ext, batch))
+        return (mod.k1_batch_kernel if batch else mod.k1_kernel), fresh
 
     def __call__(self, kernel, table: torch.Tensor,
                  vectors: Sequence[torch.Tensor], n_out: int,
-                 block_rows: int, block_cols: int,
-                 items_div: int) -> list[torch.Tensor]:
+                 block_rows: int, block_cols: int) -> list[torch.Tensor]:
         v0 = vectors[0]
         check_cuda(list(vectors) + [table])
         for v in vectors:
@@ -273,8 +399,44 @@ class K1Kernel:
         warps = 8 if block_rows * block_cols >= 8192 else 4
         with torch.cuda.device(v0.device):
             kernel[(rows // block_rows,)](
-                *args, cols // block_cols, cols, items_div,
+                *args, cols // block_cols, cols,
                 BR=block_rows, BC=block_cols, num_warps=warps)
+        self.launches += 1
+        return outs
+
+    def launch_items(self, kernel, table: torch.Tensor,
+                     items: Sequence[Sequence[torch.Tensor]], n_out: int,
+                     block_rows: int, block_cols: int,
+                     items_div: int) -> list[list[torch.Tensor]]:
+        """One ``k1_batch_kernel`` launch over the items in place:
+        ``items[k]`` holds item k's vector operands (one shape and dtype
+        for all). Returns item k's ``n_out`` outputs, new tensors of the
+        items' ``n`` elements each."""
+        check_cuda([t for vecs in items for t in vecs] + [table])
+        ops, copies = place_items(items)
+        self.item_copies += copies
+        v0 = ops[0][0]
+        n, k = v0.numel(), len(items)
+        outs = [[torch.empty(n, dtype=v0.dtype, device=v0.device)
+                 for _ in range(n_out)] for _ in range(k)]
+        if n == 0:
+            return outs
+        offsets = torch.tensor(
+            item_offsets([row + out for row, out in zip(ops, outs)]),
+            dtype=torch.int64, pin_memory=True)
+        offsets = offsets.to(v0.device, non_blocking=True)
+        vec = max(1, 16 // v0.element_size())
+        blk = block_rows * block_cols
+        blocks_per_item = -(-n // blk)
+        nunit = vec if n % vec == 0 and n < 1 << 31 else 1
+        args = (([table] if table.shape[1] else []) + ops[0] + outs[0]
+                + [offsets])
+        warps = 8 if blk >= 8192 else 4
+        with torch.cuda.device(v0.device):
+            kernel[(k * blocks_per_item,)](
+                *args, n // nunit, 1, block_cols, items_div,
+                blocks_per_item, BR=block_rows, BC=block_cols, VEC=vec,
+                NUNIT=nunit, RAGGED=n % blk != 0, num_warps=warps)
         self.launches += 1
         return outs
 

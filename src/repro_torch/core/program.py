@@ -626,16 +626,13 @@ class Program:
     # -- launch ---------------------------------------------------------------
     def call_blocks(self, *operands, block_rows: Optional[int] = None,
                     block_cols: Optional[int] = None,
-                    scalar_items: int = 0,
                     interpret: bool = False):
         """Launch on pre-normalised 2D operands (the strict template path).
 
         Vector operands must already be (rows, cols) with rows/cols
         divisible by the block geometry; defaults to the stages' declared
-        geometry. ``scalar_items`` > 0 is the scalar-batched coalesced
-        path: each scalar operand is a sequence of ``k_items`` values and
-        each group of ``scalar_items`` row blocks reads its own item's.
-        ``interpret`` runs K1's plain PyTorch emulator instead of K1.
+        geometry. ``interpret`` runs K1's plain PyTorch emulator instead
+        of K1.
         """
         stages = self.stages
         last = stages[-1]
@@ -666,14 +663,9 @@ class Program:
             raise NotImplementedError(
                 f"{self.name}: shape-changing stages are not ported yet")
 
-        if scalar_items:
-            table = _scalar_table(list(zip(*scalars)) if scalars else [()],
-                                  vectors[0].device)
-        else:
-            table = _scalar_table([scalars], vectors[0].device)
-        # items_div: row blocks per scalar row (the whole grid when shared)
-        items_div = scalar_items or max(1, rows // block_rows)
-        sig = (block_rows, block_cols, bool(interpret), int(scalar_items),
+        table = _scalar_table([scalars], vectors[0].device)
+        items_div = max(1, rows // block_rows)      # one scalar row: all
+        sig = (block_rows, block_cols, bool(interpret),
                tuple(table.shape), vectors[0].device.type,
                tuple((tuple(v.shape), dtype_name(v.dtype)) for v in vectors))
         launch = self._exe_cache.get(sig)
@@ -690,25 +682,75 @@ class Program:
         outs = launch(table, vectors, items_div)
         return outs[0] if len(outs) == 1 else tuple(outs)
 
-    def _build_call(self, vectors, block_rows, block_cols, interpret):
+    def call_items(self, scalar_rows: Sequence[Sequence[Any]],
+                   items: Sequence[Sequence[torch.Tensor]], *,
+                   block_rows: int, block_cols: int,
+                   interpret: bool = False) -> list[list[torch.Tensor]]:
+        """Launch once over the items of a batch where they lie (the
+        coalesced path below :meth:`call_batch`).
+
+        ``items[k]`` holds item k's external vector operands in program
+        order, all of one shape and dtype; ``scalar_rows`` is one row of
+        scalar operands shared by every item, or one row per item. Item k
+        runs as ``⌈n / (block_rows·block_cols)⌉`` row blocks of
+        ``block_cols``-element rows, the layout of a solo call, with the
+        tail past its ``n`` elements masked. Returns item k's outputs, new
+        flat tensors of ``n`` elements. ``interpret`` runs the plain
+        PyTorch version (:func:`~repro_torch.core.fused_kernel.
+        emulate_items`)."""
+        if self.stages[-1].out_shapes is not None:
+            raise NotImplementedError(
+                f"{self.name}: shape-changing stages are not ported yet")
+        v0 = items[0][0]
+        device = v0.device
+        table = _scalar_table(list(scalar_rows), device)
+        blocks_per_item = -(-v0.numel() // (block_rows * block_cols))
+        # items_div: row blocks per scalar row (the whole grid when shared)
+        items_div = (blocks_per_item if len(scalar_rows) > 1
+                     else max(1, len(items) * blocks_per_item))
+        sig = ("items", block_rows, block_cols, bool(interpret),
+               len(scalar_rows) > 1, tuple(table.shape[1:]), device.type,
+               dtype_name(v0.dtype), len(items[0]))
+        launch = self._exe_cache.get(sig)
+        if launch is None:
+            DISPATCH_STATS.call_builds += 1
+            with _trace.span("pallas_build", program=self.name,
+                             block=[block_rows, block_cols],
+                             interpret=bool(interpret)):
+                launch = self._build_call([t for it in items for t in it],
+                                          block_rows, block_cols, interpret,
+                                          batch=True)
+            if len(self._exe_cache) >= _EXE_CACHE_MAX:
+                self._exe_cache.pop(next(iter(self._exe_cache)))
+            self._exe_cache[sig] = launch
+        return launch(table, items, items_div)
+
+    def _build_call(self, vectors, block_rows, block_cols, interpret,
+                    batch: bool = False):
         """The launch closure for one operand signature (the cold half of
-        :meth:`call_blocks`): K1, or its plain PyTorch emulator."""
+        :meth:`call_blocks` and :meth:`call_items`): K1, or its plain
+        PyTorch emulator; with ``batch`` the per-item versions."""
         stages, n_ext = self.stages, tuple(self._n_ext)
         if interpret:
             DISPATCH_STATS.kernel_traces += 1
+            walk = _fk.emulate_items if batch else _fk.emulate
 
             def launch(table, vecs, items_div):
-                return _fk.emulate(stages, n_ext, table, vecs, block_rows,
-                                   block_cols, items_div)
+                return walk(stages, n_ext, table, vecs, block_rows,
+                            block_cols, items_div)
             return launch
         _fk.check_cuda(vectors)
-        kernel, fresh = _fk.K1.compile(stages, n_ext)
+        kernel, fresh = _fk.K1.compile(stages, n_ext, batch)
         DISPATCH_STATS.kernel_traces += fresh
         n_out = self.n_vec_out
-
-        def launch(table, vecs, items_div):
-            return _fk.K1(kernel, table, vecs, n_out, block_rows,
-                          block_cols, items_div)
+        if batch:
+            def launch(table, vecs, items_div):
+                return _fk.K1.launch_items(kernel, table, vecs, n_out,
+                                           block_rows, block_cols, items_div)
+        else:
+            def launch(table, vecs, items_div):   # one scalar row: unused
+                return _fk.K1(kernel, table, vecs, n_out, block_rows,
+                              block_cols)
         return launch
 
     def _check_vectors(self, per_stage):
@@ -829,16 +871,19 @@ class Program:
         """Coalesced dispatch: N same-structure requests, ONE launch.
 
         Items must agree on scalar operand shapes/dtypes and on vector
-        shapes/dtype, and every stage must be shape-preserving. Each item
-        is normalised to whole blocks exactly as a solo :meth:`__call__`
-        would be, the padded 2-D operands are stacked along the parallel
-        row axis (one copy per operand slot), and one launch covers them
-        all — so per-item results are bit-identical to N solo calls
+        shapes/dtype, and every stage must be shape-preserving. One launch
+        (:meth:`call_items`) reads and writes every item where it lies:
+        each item runs as the row blocks a solo :meth:`__call__` would
+        give it, its tail past ``n`` masked where a solo call pads with
+        zeros, so per-item results are bit-identical to N solo calls
         (blocks never straddle an item boundary; carried state is per row
-        block in both paths). Scalar values may differ between items:
+        block in both paths). Nothing is stacked or padded; an item that
+        is not contiguous or not 16-byte aligned is copied alone
+        (``K1.item_copies``). Scalar values may differ between items:
         then every scalar slot becomes one column of a ``(k_items, m)``
         table and each row block reads its item's row
-        (``DISPATCH_STATS.batch_mixed``). Returns per-item results.
+        (``DISPATCH_STATS.batch_mixed``). Returns per-item results, each
+        a tensor of its own.
         """
         batch = [tuple(ops) for ops in batch]
         if not batch:
@@ -884,40 +929,16 @@ class Program:
             block_rows, block_cols = self._resolve_geometry(n, dtype)
             if _sp is not None:
                 _sp.attrs["block"] = [block_rows, block_cols]
-            rows_raw = -(-n // block_cols)
-            rows_per_item = round_up(rows_raw, block_rows)
-            padded_n = rows_per_item * block_cols
-
-            def stack_slot(vs):
-                """One operand slot's items in the padded 2-D batch
-                layout: the bytes a vstack of per-item
-                ``flatten_to_blocks`` results would hold."""
-                flat = torch.stack([v.reshape(-1) for v in vs])
-                if padded_n != n:
-                    flat = torch.nn.functional.pad(flat, (0, padded_n - n))
-                return flat.reshape(k_items * rows_per_item, block_cols)
-
-            # program operand order: per stage, scalars then stacked
-            # external vectors. Equal scalars pass through from item 0;
-            # mixed scalars pass per slot as the k_items values.
-            scalar_items = rows_per_item // block_rows if mixed else 0
-            norm = []
-            for si, (sc0, ext0) in enumerate(items[0]):
-                for ki in range(len(sc0)):
-                    norm.append([per[si][0][ki] for per in items] if mixed
-                                else sc0[ki])
-                for vi in range(len(ext0)):
-                    norm.append(stack_slot([per[si][1][vi] for per in items]))
-            out = self.call_blocks(*norm, block_rows=block_rows,
+            # scalars in program order: item 0's when all items agree,
+            # else one row per item (the mixed-scalar table)
+            rows = ([[s for sc, _ in per for s in sc] for per in items]
+                    if mixed else [[s for sc, _ in items[0] for s in sc]])
+            outs = self.call_items(rows, ref_vecs, block_rows=block_rows,
                                    block_cols=block_cols,
-                                   scalar_items=scalar_items,
                                    interpret=interpret)
-        outs = out if isinstance(out, tuple) else (out,)
-        unstacked = [o.reshape(k_items, padded_n)[:, :n].reshape(
-                         (k_items,) + tuple(shape)) for o in outs]
         results = []
-        for k in range(k_items):
-            per_out = tuple(o[k] for o in unstacked)
+        for per_out in outs:
+            per_out = tuple(o.view(shape) for o in per_out)
             results.append(per_out[0] if len(per_out) == 1 else per_out)
         DISPATCH_STATS.batch_calls += 1
         DISPATCH_STATS.batch_items += k_items

@@ -1,9 +1,12 @@
 // The tile of the bitonic-network kernels (sortnet.cu: K5, K6; topk.cu:
-// K7). A block holds TILE keys in registers, PER_THREAD a thread; key e of
-// a thread sits at tile index ((warp * PER_THREAD + e) << 5) | lane, so a
-// partner at distance j < 32 is lane ^ j of the same warp
-// (__shfl_xor_sync) and larger distances go through shared memory. Keys
-// are compared in Key<T>::C: bf16 as float (__bfloat162float is exact).
+// K7). A block holds TILE keys in registers, PER_THREAD a thread. In K5
+// and K7 key e of a thread sits at tile index
+// ((warp * PER_THREAD + e) << 5) | lane (tile_index), so a partner at
+// distance j < 32 is lane ^ j of the same warp (__shfl_xor_sync) and
+// larger distances go through shared memory; K6 has layouts of its own
+// (sortnet.cu). Keys
+// are compared in Key<T>::C: bf16 as float (__bfloat162float is exact, and
+// Key::out takes the bits back, so keys leave as they came, NaN too).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -29,7 +32,9 @@ struct Key<__nv_bfloat16> {
     return __bfloat162float(v);
   }
   static __device__ __forceinline__ __nv_bfloat16 out(C v) {
-    return __float2bfloat16(v);            // exact: v came from a bf16
+    // v came from a bf16: its upper 16 bits are that bf16, NaN payloads
+    // included (__float2bfloat16 would make every NaN the canonical one)
+    return __ushort_as_bfloat16((unsigned short)(__float_as_uint(v) >> 16));
   }
 };
 

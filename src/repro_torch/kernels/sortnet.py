@@ -22,7 +22,10 @@ The kernels are CUDA C++ (``csrc/sortnet.cu``, built by ``_cuda.py``):
 Both run a grid over all tiles of the operand (a sort has no carry) and
 take chunks of up to :data:`MAX_CHUNK` keys: a sorted chunk of up to
 4096, or two merged halves of up to 2048. Rows need no padding: a
-chunk never spans two rows, and the kernels stop at the last key.
+chunk never spans two rows, and the kernels stop at the last key. K6 is
+built once per merge size (L = log2(2w), 1 … 12): its layers run on keys
+a thread holds, four index bits at a time, with a shared-memory
+transpose between groups, and it stores 16-byte vectors.
 """
 from __future__ import annotations
 

@@ -86,6 +86,73 @@ def test_call_batch_bit_identical_to_solo(cuda, mixed):
         assert torch.equal(out, fused(*item, mode="kernel"))
 
 
+def _absmax_template():
+    def body(scalars, ins, carry, step):
+        m = torch.maximum(carry, ins[0].abs().amax(dim=-1, keepdim=True))
+        return (ins[0] / torch.clamp_min(m, 1e-9),), m
+
+    return KernelTemplate(name="absmax", body=body, carry_cols=1,
+                          triton_body="""
+def absmax(x0, carry, step):
+    m = tl.maximum(carry, tl.max(tl.abs(x0), axis=1)[:, None])
+    return x0 / tl.maximum(m, 1e-9), m
+""")
+
+
+@pytest.mark.parametrize("n", [5, 3 * 4097 + 1, (1 << 20) - 1000, 1 << 20])
+@pytest.mark.parametrize("mixed", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_call_batch_reads_items_in_place(cuda, n, mixed, dtype):
+    # ragged n (odd, or a multiple of 4 but not of a block) is masked in
+    # the kernel; each item is its own tensor and nothing is copied
+    fused = isa.fuse("c0_scale", "c0_add")
+    batch = [(0.5 + k if mixed else 2.0, rand(n, 2 * k, cuda).to(dtype),
+              rand(n, 2 * k + 1, cuda).to(dtype)) for k in range(5)]
+    before, copies = K1.launches, K1.item_copies
+    got = fused.program.call_batch(batch)
+    assert K1.launches == before + 1
+    assert K1.item_copies == copies
+    ptrs = {out.untyped_storage().data_ptr() for out in got}
+    assert len(ptrs) == len(batch)
+    for item, out in zip(batch, got):
+        assert out.shape == (n,) and out.dtype == dtype
+        assert out.untyped_storage().nbytes() == n * out.element_size()
+        assert torch.equal(out, fused(*item, mode="kernel"))
+
+
+def test_call_batch_copies_only_misaligned_or_strided_items(cuda):
+    fused = isa.fuse("c0_scale", "c0_add")
+    n = 3 * 4096 + 5
+    big = rand(2 * n + 2, 9, cuda)
+    batch = [(1.5, rand(n, 0, cuda), rand(n, 1, cuda)),
+             (2.5, big[1:n + 1], rand(n, 2, cuda)),        # 4-byte offset
+             (3.5, rand(n, 3, cuda), big[::2][:n]),         # strided
+             (4.5, rand(n, 4, cuda), rand(n, 5, cuda))]
+    assert big[1:n + 1].data_ptr() % 16
+    before, copies = K1.launches, K1.item_copies
+    got = fused.program.call_batch(batch)
+    assert K1.launches == before + 1
+    assert K1.item_copies == copies + 2
+    for item, out in zip(batch, got):
+        assert torch.equal(out, fused(*item, mode="kernel"))
+
+
+def test_call_batch_of_a_carried_stage(cuda):
+    prog = _absmax_template().program()
+    items = [(rand(1000 * 4097, k, cuda).reshape(1000, 4097),)
+             for k in range(4)]
+    before = K1.launches
+    got = prog.call_batch(items)
+    assert K1.launches == before + 1
+    plain = prog.call_batch(items, interpret=True)
+    for (x,), out, p in zip(items, got, plain):
+        assert out.shape == x.shape
+        assert torch.equal(out, prog(x))
+        ulp = (out.view(torch.int32).long()
+               - p.view(torch.int32).long()).abs()
+        assert int(ulp.max()) <= 2
+
+
 def test_carried_template_within_two_ulp(cuda):
     def body(scalars, ins, carry, step):
         m = torch.maximum(carry, ins[0].abs().amax(dim=-1, keepdim=True))

@@ -97,22 +97,68 @@ def test_k5_matches_network(cuda, shape, width, dtype, descending):
         x, width=width, descending=descending, interpret=True))
 
 
+def same_bits(x, y):
+    """Bit for bit (NaN included), through an integer view."""
+    view = {2: torch.int16, 4: torch.int32}[x.element_size()]
+    return x.dtype == y.dtype and torch.equal(x.view(view), y.view(view))
+
+
+def special_keys(shape, dtype, seed, dev):
+    """Few values: ties, ±0.0 and (for floats) NaN."""
+    rng = np.random.default_rng(seed)
+    if dtype == torch.int32:
+        return torch.from_numpy(rng.integers(-3, 3, shape,
+                                             dtype=np.int32)).to(dev)
+    pool = np.array([-2.5, -0.0, 0.0, 1.0, 1.0, np.nan, 7.0], np.float32)
+    return torch.from_numpy(rng.choice(pool, shape)).to(dtype).to(dev)
+
+
+def k6_merge(a, b, w, descending):
+    """K6 through its wrapper; w = 1 (L = 1), which the wrapper rejects as
+    the reference does, through K6 itself."""
+    if w == 1:
+        return sn.K6(a, b, 1, descending)
+    return sn.merge_sorted_kernel(a, b, width=w, descending=descending)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("rows,w", [(1, 8), (4, 16), (9, 64), (16, 128),
-                                    (3, 2048), (7, 2)])
+@pytest.mark.parametrize("w", [1 << k for k in range(12)])   # L = 1 … 12
 @pytest.mark.parametrize("descending", [False, True])
-def test_k6_matches_network(cuda, rows, w, dtype, descending):
+@pytest.mark.parametrize("values", ["random", "special"])
+def test_k6_matches_network(cuda, w, dtype, descending, values):
+    rows = 5                       # 40w merged keys: a ragged last tile
+    make = keys if values == "random" else special_keys
+
     def sorted_chunks(seed):
-        x = keys((rows, 4, w), DTYPES[dtype], seed, cuda)
+        x = make((rows, 4, w), DTYPES[dtype], seed, cuda)
         return torch.sort(x).values.reshape(rows, 4 * w)
 
     a, b = sorted_chunks(1), sorted_chunks(2)
     before = sn.K6.launches
-    lo, hi = sn.merge_sorted_kernel(a, b, width=w, descending=descending)
+    lo, hi = k6_merge(a, b, w, descending)
     assert sn.K6.launches == before + 1
-    plo, phi = sn.merge_sorted_kernel(a, b, width=w, descending=descending,
-                                      interpret=True)
-    assert torch.equal(lo, plo) and torch.equal(hi, phi)
+    plo, phi = sn.merge_sorted_plain(a, b, w, descending)
+    assert same_bits(lo, plo) and same_bits(hi, phi)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("w", [1, 2, 4, 8, 64])
+@pytest.mark.parametrize("layout", ["misaligned", "cols not 8-aligned",
+                                    "odd row stride"])
+def test_k6_loads_key_by_key_where_runs_do_not_fit(cuda, w, dtype, layout):
+    # at L ≤ 4 K6 loads 8-key runs only from 16-byte aligned rows whose
+    # length is a multiple of 8; these operands take its per-key loads
+    cols = (3 if layout == "cols not 8-aligned" else 8) * w
+    stride = -(-(2 * cols + 1) // 8) * 8 + (layout == "odd row stride")
+    start = int(layout == "misaligned")
+    x = special_keys((4, stride), DTYPES[dtype], 5, cuda)
+    a = x[:, start:start + cols]
+    b = x[:, start + cols:start + 2 * cols]
+    for t in (a, b):
+        t.copy_(torch.sort(t.reshape(4, -1, w)).values.reshape(4, cols))
+    lo, hi = k6_merge(a, b, w, False)
+    plo, phi = sn.merge_sorted_plain(a.contiguous(), b.contiguous(), w)
+    assert same_bits(lo, plo) and same_bits(hi, phi)
 
 
 def test_k6_strided_rows_as_the_app_passes_them(cuda):

@@ -349,3 +349,172 @@ def test_smoke_phase_e_matches_jax(smoke):
     assert torch.equal(got, torch.sort(v).values)
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke.phase_e(v, "kernel")
+
+
+# ---------------------------------------------------------------------------
+# K6's layouts (csrc/sortnet.cu), emulated on the CPU: where each key sits
+# in each layout, the swizzled shared tile, the vector runs and the masked
+# tail, thread by thread, held against the plain network. The kernel
+# itself runs only on the card.
+# ---------------------------------------------------------------------------
+
+K6_THREADS, K6_TILE, K6_PER = 256, 4096, 16
+
+
+def k6_swz(i):
+    return i ^ ((i >> 5) & 15) ^ ((i >> 4) & 16)
+
+
+def k6_layout_base(q):
+    t = torch.arange(K6_THREADS)
+    lane, warp = t & 31, t >> 5
+    if q == 2:
+        return lane | (warp << 5)
+    if q == 1:
+        return (lane & 15) | ((lane >> 4) << 8) | (warp << 9)
+    return (lane << 4) | (warp << 9)
+
+
+def k6_cas(x, y, up):
+    """cas(x, y, lower=True, up) and cas(y, x, lower=False, up)."""
+    return (torch.where((x <= y) == up, x, y),
+            torch.where((y < x) == (not up), y, x))
+
+
+def k6_emulated(a, b, w, descending=False, aligned=True):
+    """K6's data flow for the tiles of (a, b): per thread, the first
+    layout's loads (8-key runs at L ≤ 4 where the launcher allows them;
+    ``aligned`` stands for its pointer check), each layout's in-register
+    layers, the transposes through the swizzled tile and the stores from
+    layout 0."""
+    rows, cols = a.shape
+    L = (2 * w).bit_length() - 1
+    W, q0, up = w, (L - 1) // 4, not descending
+    cpr = cols // w
+    per_vec = 16 // a.element_size()
+    vec = (aligned and cols % 8 == 0 and a.stride(0) % per_vec == 0
+           and b.stride(0) % per_vec == 0)
+    n_virtual = 2 * rows * cpr * w
+    ac, bc = ((t.float() if t.dtype == torch.bfloat16 else t) for t in (a, b))
+    lo = torch.zeros(rows * cols, dtype=ac.dtype)
+    hi = torch.zeros_like(lo)
+
+    def locate(c):
+        row = c // cpr
+        return row, (c - row * cpr) << (L - 1)
+
+    def key_at(g):
+        valid = g < n_virtual
+        g = torch.where(valid, g, 0)
+        row, col = locate(g >> L)
+        m = g & (2 * W - 1)
+        ka = ac[row, (col + m).clamp(max=cols - 1)]
+        kb = bc[row, (col + 2 * W - 1 - m).clamp(min=0, max=cols - 1)]
+        return torch.where(valid, torch.where(m < W, ka, kb),
+                           torch.zeros((), dtype=ac.dtype))
+
+    def layers(v, q):
+        for bit in range(min(4 * q + 3, L - 1), 4 * q - 1, -1):
+            s = bit - 4 * q
+            for e in range(K6_PER):
+                f = e | (1 << s)
+                if f != e:
+                    v[:, e], v[:, f] = k6_cas(v[:, e], v[:, f], up)
+
+    def transpose(v, qf, qt):
+        smem = torch.empty(K6_TILE, dtype=v.dtype)
+        for e in range(K6_PER):
+            smem[k6_swz(k6_layout_base(qf)) ^ k6_swz(e << 4 * qf)] = v[:, e]
+        for e in range(K6_PER):
+            v[:, e] = smem[k6_swz(k6_layout_base(qt)) ^ k6_swz(e << 4 * qt)]
+
+    for tile in range(-(-n_virtual // K6_TILE)):
+        v = torch.empty((K6_THREADS, K6_PER), dtype=ac.dtype)
+        base = k6_layout_base(q0)
+        if L <= 4:
+            g0 = tile * K6_TILE + base
+            for t in range(K6_PER):
+                v[:, t] = key_at(g0 + t)
+            run = vec & (g0 + K6_PER <= n_virtual)
+            if run.any():
+                row, col = locate(g0[run] >> L)
+                k8 = torch.arange(8)
+                ra = ac[row[:, None], col[:, None] + k8]
+                rb = bc[row[:, None], col[:, None] + k8]
+                for t in range(K6_PER):
+                    j, m = t >> L, t & (2 * W - 1)
+                    v[run, t] = (ra[:, j * W + m] if m < W
+                                 else rb[:, j * W + 2 * W - 1 - m])
+        else:
+            for e in range(K6_PER):
+                v[:, e] = key_at(tile * K6_TILE + (base | (e << 4 * q0)))
+        layers(v, q0)
+        if q0 == 2:
+            transpose(v, 2, 1)
+            layers(v, 1)
+        if q0 >= 1:
+            transpose(v, 1, 0)
+            layers(v, 0)
+        g0 = tile * K6_TILE + k6_layout_base(0)
+        for th in range(K6_THREADS):
+            g = int(g0[th])
+            if g >= n_virtual:
+                continue
+            if L >= 5:
+                m0 = g & (2 * W - 1)
+                at = ((g >> L) << (L - 1)) + (m0 & (W - 1))
+                (lo if m0 < W else hi)[at:at + K6_PER] = v[th]
+                continue
+            for t in range(min(K6_PER, n_virtual - g)):
+                m = t & (2 * W - 1)
+                at = (((g + t) >> L) << (L - 1)) + (m & (W - 1))
+                (lo if m < W else hi)[at] = v[th, t]
+    return (lo.to(a.dtype).reshape(rows, cols),
+            hi.to(a.dtype).reshape(rows, cols))
+
+
+@pytest.mark.parametrize("q", [0, 1, 2])
+def test_k6_layouts_cover_the_tile_and_hit_every_bank(q):
+    base = k6_layout_base(q)
+    idx = torch.stack([base | (e << 4 * q) for e in range(K6_PER)], 1)
+    assert torch.equal(idx.flatten().sort().values, torch.arange(K6_TILE))
+    assert torch.equal(k6_swz(torch.arange(K6_TILE)).sort().values,
+                       torch.arange(K6_TILE))
+    for e in range(K6_PER):
+        word = k6_swz(idx[:, e])
+        # XOR-linear: the kernel adds each register's part as a constant
+        assert torch.equal(word, k6_swz(base) ^ k6_swz(e << 4 * q))
+        for warp in (word % 32).view(8, 32):      # one warp access
+            assert len(set(warp.tolist())) == 32
+
+
+def k6_keys(shape, dtype, seed):
+    """Sorted chunks drawn from few values, with ties, ±0.0 and NaN."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        return torch.from_numpy(rng.integers(-3, 3, shape, dtype=np.int32))
+    pool = np.array([-2.5, -0.0, 0.0, 1.0, 1.0, np.nan, 7.0], np.float32)
+    x = torch.from_numpy(rng.choice(pool, shape))
+    return x.to(TORCH[dtype])
+
+
+@pytest.mark.parametrize("w", [1 << k for k in range(12)])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+@pytest.mark.parametrize("descending", [False, True])
+@pytest.mark.parametrize("rows,chunks", [(3, 0), (1, 5)])
+def test_k6_layouts_merge_as_the_network(w, dtype, descending, rows, chunks):
+    # 3 rows of ≥ 3 chunks (at least 24 keys, so that L ≤ 4 takes its
+    # 8-key runs), or one row of 5 chunks (10w merged keys: at w < 8 a
+    # thread's last run is cut short); both leave a ragged last tile
+    cols = chunks * w or 3 * max(w, 8)
+    x = k6_keys((rows, 2 * cols), dtype, w)
+    x = torch.sort(x.view(rows, 2, -1, w), -1).values.view(rows, 2 * cols)
+    a, b = x[:, :cols], x[:, cols:]               # rows strided 2·cols
+    want = sn.merge_sorted_plain(a, b, w, descending)
+    for aligned in (True, False):
+        got = k6_emulated(a, b, w, descending, aligned)
+        for g, p in zip(got, want):
+            assert torch.equal(g.view(torch.int16 if g.dtype ==
+                                      torch.bfloat16 else torch.int32),
+                               p.view(torch.int16 if p.dtype ==
+                                      torch.bfloat16 else torch.int32))
