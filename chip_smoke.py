@@ -37,8 +37,9 @@ Phases (inputs from numpy with a fixed seed):
      in one row through ops.sortnet_mergesort(v[None], max_kernel_width=
      4096) — one K5 launch (width 8), nine K6 launches (one at each
      w = 8…2048), then 14 torch.sort levels as in the reference; plus K5
-     at width 64 in float32 and bfloat16, and K6 alone at each of the nine
-     widths on that level's operands
+     alone at widths 16, 64, 512 and 4096 in float32 and 64 in bfloat16
+     (one instance per width), and K6 alone at each of the nine widths on
+     that level's operands
   F  the prefix-sum app (§2 of the same example): ops.prefix_sum over one
      row of 2²⁶ float32 — one K3 launch
   G  the SSD inter-chunk state scan at Mamba2-1.3B's widths
@@ -54,11 +55,16 @@ Phases (inputs from numpy with a fixed seed):
      which prefill launches c6); random weights from a seeded CUDA
      generator. 4 prompts of 1024 tokens, 16 greedy tokens each: K8 twice
      (prefill, one per layer), K7 and K3 2 × 16 = 32 times each (prefill and
-     15 decode steps, one per layer). The path's own K7 inputs (layer 0 of
-     prefill and of the first decode step) and K8 inputs (layer 0 of
-     prefill) are recorded and held against the plain versions and the
-     oracles; K7 and K8 are also held off the path at the same shapes (a
-     K7 tile of ties; K8 causal at sq < sk; K8 in float32). The same
+     15 decode steps, one per layer). The router's (tokens, 384) logits
+     go to K7 in place, standing for rows of 512 (no padded copy: one
+     torch.profiler trace of a router top-k call holds one K7 kernel and
+     no concatenation). The path's own K7 inputs (layer 0 of prefill and
+     of the first decode step) and K8 inputs (layer 0 of prefill) are
+     recorded and held against the plain versions and the oracles; K7 and
+     K8 are also held off the path at the same shapes (K7: a tile of
+     ties, bfloat16, int32, a tile of ±0.0 and NaN of either sign, rows
+     of 8192 at k 8 and the full network at k 40; K8 causal at sq < sk;
+     K8 in float32). The same
      request through the plain path (isa.use("interpret")) is printed
      beside it, not gated: near-tied router logits may flip an expert
 
@@ -90,8 +96,11 @@ Tolerances (fixed before any run):
   * state scan (G), against a float64 sequential recurrence:
     (⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps_f32·Σ_{j≤i}|bⱼ|, valid since
     0 < a ≤ 1 (one more rounding for the products);
-  * K7 (H): values and indices bit-exact against the plain network and
-    the stable-sort oracle; K3 in H (sums of 0/1 below 2²⁴) bit-exact;
+  * K7 (H): values (by their bits) and indices bit-exact against the
+    oracle ref.topk (lax.top_k's order) everywhere, and against the plain
+    network (the JAX kernel's) on every input without NaN and without
+    both signed zeros, where the two orders agree; K3 in H (sums of 0/1
+    below 2²⁴) bit-exact;
   * K8 (H) in float32, per row i against the plain version and the oracle:
     (D·eps_f32·scale·max_j Σ_d|q_id·k_jd| + sk·eps_f32)·2·max|v| — the
     logits' fp32 dot products, then the weighted sums, in other orders;
@@ -191,6 +200,10 @@ SSD_STATE = (64, 128)              # (headdim, state) of mamba2_1p3b
 EPS = float(torch.finfo(torch.float32).eps)
 K3_PLAIN_LIMIT = 0.05              # phase F: |K3 − plain|, see the docstring
 UNIT_SCALE_NOISE = 4.0             # phase H: K8's paired count (docstring)
+TOPK_WIDE = (64, 8192)             # phase H: K7 rows above 4096 (k ≤ 32)
+TOPK_FULL_K = 40                   # phase H: K7's full network (k > 32)
+K5_WIDTHS = (("float32", 16), ("float32", 64), ("bfloat16", 64),
+             ("float32", 512), ("float32", 4096))   # phase E, off the app
 LM_ARCH = "kimi_k2_1t"             # phase H: the served model
 LM_LAYERS = 2                      # of 61 (see the docstring)
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 16
@@ -530,6 +543,7 @@ def statescan_bound_misses(got, a, states, bc: int,
 # ---------------------------------------------------------------------------
 
 GPU_CYCLES_PER_S = 2.0e9            # above the H100's top SM clock
+SPIN_CYCLES = 10_000_000            # ~5 ms: a spin around a traced call
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> tuple[float, float, float]:
@@ -893,13 +907,14 @@ def run_phase_e(dev, check, rows):
                "app_torch_sort_ms": lib[0],
                "app_device_ms_by_kind": device_ms_by_kind(
                    lambda: phase_e(v, "kernel"), APP_KINDS)}
-    # K5 at the app's shape, and at width 64 in float32 and bfloat16; the
-    # last two are not on the app's path, so their launches are those of
-    # their own call
+    # K5 at the app's shape, and at other widths (one instance each); those
+    # are not on the app's path, so their launches are those of their own
+    # call
     f32 = make_inputs(SEED + 5, [N_SORT], dev)[0]
-    for case, x, width in (("int32 w8 (app)", v[None], 8),
-                           ("float32 w64", f32[None], 64),
-                           ("bfloat16 w64", f32.to(torch.bfloat16)[None], 64)):
+    cases = [("int32 w8 (app)", v[None], 8)] + [
+        (f"{dt} w{w}", f32[None] if dt == "float32"
+         else f32.to(torch.bfloat16)[None], w) for dt, w in K5_WIDTHS]
+    for case, x, width in cases:
         on_app = case.endswith("(app)")
         K5.launches = 0
         got = sn.sort_chunks_kernel(x, width=width)
@@ -961,7 +976,12 @@ def device_events(fn) -> list[tuple[str, float]] | None:
     one call of ``fn`` in a ``torch.profiler`` trace; None when the
     profiler sees no device time. The trace runs a warm-up call first and
     keeps only the second: a launch right after the trace starts can be
-    missing from it (K5, the mergesort app's first kernel, was)."""
+    missing from it (K5, the mergesort app's first kernel, was). Each
+    call also sits between two spin kernels of ~5 ms, left out of the
+    result: a trace of a few microseconds of device work came back empty
+    on the H100 (the router's top-k, and a cat of the same size, once
+    phase E's app trace had run), and the same work inside ~10 ms of
+    spinning comes back whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     events = []
@@ -970,13 +990,16 @@ def device_events(fn) -> list[tuple[str, float]] | None:
         events.extend((e.name, e.device_time_total / 1e3)
                       for e in prof.events()
                       if e.device_type == DeviceType.CUDA
-                      and not e.name.startswith("ProfilerStep"))
+                      and not e.name.startswith("ProfilerStep")
+                      and "spin_kernel" not in e.name)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
                  on_trace_ready=keep) as prof:
         for _ in range(2):
+            torch.cuda._sleep(SPIN_CYCLES)
             fn()
+            torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
             prof.step()
     if not any(ms for _, ms in events):
@@ -1121,13 +1144,55 @@ def hold_f64(check, what, q, k, v, out, plain, noise: float = 0.0) -> dict:
     return res
 
 
-def hold_topk(check, what, x, k, vals, idx):
-    pv, pi = tk.topk_plain(x, k)
-    rv, ri = ref.topk(x, k)
-    for name, (wv, wi) in (("plain", (pv, pi)), ("oracle", (rv, ri))):
-        check.exact(f"{what} values vs {name}", vals, wv)
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit (NaN included), through an integer view."""
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+def special_topk_rows(seed: int, shape, dtype, device) -> torch.Tensor:
+    """Rows of float32 bit patterns (bfloat16: their upper half): row 0
+    eight -0.0, eight +0.0, then -1.0; row 1 all NaN; row 2 all sign-bit
+    NaN; the rest drawn from ±0.0, NaN of either sign, ±inf, ±1.0, 2.5."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0x80000000, 0x0, 0x7FC00000, 0xFFC00000, 0x7F800000,
+                     0xFF800000, 0x3F800000, 0xBF800000, 0x40200000],
+                    np.uint32)
+    bits = rng.choice(pool, shape)
+    bits[0] = 0xBF800000
+    bits[0, :8], bits[0, 8:16] = 0x80000000, 0x0
+    bits[1], bits[2] = 0x7FC00000, 0xFFC00000
+    if dtype == torch.bfloat16:
+        half = (bits >> 16).astype(np.uint16).view(np.int16)
+        return torch.from_numpy(half).to(device).view(torch.bfloat16)
+    return torch.from_numpy(bits.view(np.int32)).to(device).view(
+        torch.float32)
+
+
+def hold_topk(check, what, x, k, vals, idx, npow=None, plain=True):
+    """K7's (vals, idx) of x (rows standing for rows of npow) against the
+    oracle on the padded rows and, where ``plain``, the plain network."""
+    xp = tk.pad_to(x, x.shape[1] if npow is None else npow)
+    wants = [("oracle", ref.topk(xp, k))]
+    if plain:
+        wants.append(("plain", tk.topk_plain(xp, k)))
+    for name, (wv, wi) in wants:
+        check.true(f"{what} values vs {name}: not bit-exact",
+                   same_bits(vals, wv))
         check.exact(f"{what} indices vs {name}", idx, wi)
-    return max_abs(vals.float(), pv.float())
+    return max_abs(vals.float(), wants[-1][1][0].float()) if plain else 0.0
+
+
+def topk_row(case, launches, err, x, k, npow, **extra):
+    """One K7 row: the rows read once and k values and int32 indices
+    written a row; one comparison a key."""
+    return entry(
+        case, launches, err, time_ms(lambda: tk.K7(x, k, npow)),
+        time_ms(lambda: tk.topk_plain(tk.pad_to(x, npow), k), reps=5),
+        x.numel() * x.element_size() + x.shape[0] * k * (x.element_size()
+                                                         + 4),
+        x.numel(), time_ms(lambda: torch.topk(x, k)), kernel="K7", k=k,
+        npow=npow, **extra)
 
 
 def run_phase_h(dev, check, rows):
@@ -1167,11 +1232,15 @@ def run_phase_h(dev, check, rows):
     again, prefill_s, decode_s = phase_h(cfg, params, prompts, LM_GEN, "auto")
     check.exact("H greedy tokens, run 2 vs run 1", again, tokens)
 
-    # the kernels on the path's own inputs
-    (x7, k7), _, (v7, i7) = t7.calls[0]
-    err7 = hold_topk(check, "H K7 prefill", x7, k7, v7, i7)
+    # the kernels on the path's own inputs (the router's rows in place)
+    (x7, k7), kw7, (v7, i7) = t7.calls[0]
+    npow7 = kw7["npow"]
+    check.true(f"H K7: router rows {tuple(x7.shape)} standing for "
+               f"{npow7}, want {cfg.n_experts} in place",
+               x7.shape[1] == cfg.n_experts and npow7 > x7.shape[1])
+    err7 = hold_topk(check, "H K7 prefill", x7, k7, v7, i7, npow7)
     (xd, kd), _, (vd, idd) = t7.calls[n_l]
-    hold_topk(check, "H K7 decode", xd, kd, vd, idd)
+    errd = hold_topk(check, "H K7 decode", xd, kd, vd, idd, npow7)
     (q, kk, vv), kw8, o8 = t8.calls[0]
     plain8 = fa.flash_attention_plain(q, kk, vv, causal=kw8["causal"])
     res8 = hold_attention(check, "H K8 prefill layer 0", q, kk, vv, o8,
@@ -1235,14 +1304,14 @@ def run_phase_h(dev, check, rows):
         "peak_bytes": torch.cuda.max_memory_allocated(dev)}
     print(json.dumps({"serve": summary}), flush=True)
 
-    # kernel rows at the path's shapes
-    rows.append(entry(
-        f"H topk {tuple(x7.shape)} float32 k={k7} (router, prefill)",
-        launches["K7"], err7, time_ms(lambda: tk.K7(x7, k7)),
-        time_ms(lambda: tk.topk_plain(x7, k7), reps=5),
-        x7.numel() * 4 + x7.shape[0] * k7 * 8,
-        sn.n_cas_layers(x7.shape[1]) * x7.numel(),
-        time_ms(lambda: torch.topk(x7, k7)), kernel="K7"))
+    # kernel rows at the path's shapes: K7's launches on the path are
+    # those of both shapes (one a layer in prefill and in each decode step)
+    k7_rows = [topk_row(
+        f"H topk {tuple(x.shape)} in place of {npow7} float32 k={k7} "
+        f"(router, {case})", launches["K7"], err, x, k7, npow7,
+        launches_counted_in="main path (prefill and decode)")
+        for case, x, err in (("prefill", x7, err7), ("decode", xd, errd))]
+    rows.extend(k7_rows)
     bh, sq, d, sk = q.shape[0] * q.shape[1], q.shape[2], q.shape[3], kk.shape[2]
     pairs = sum(min(sk, i + sk - sq + 1) for i in range(sq))   # causal
     k8_row = entry(
@@ -1265,6 +1334,16 @@ def run_phase_h(dev, check, rows):
     del params, t7, t8, ts, q, kk, vv, o8, plain8
     torch.cuda.empty_cache()
 
+    # one router top-k call at the prefill's shape in a torch.profiler
+    # trace (the weights freed): one K7 kernel, no padding copy
+    router = device_kernels(lambda: ops.topk(x7, k7))
+    names = None if router is None else [name for name, _ in router]
+    check.true(f"H: a router top-k call ran {names}, want one K7 kernel "
+               f"and no concatenation",
+               names is not None and len(names) == 1
+               and "k7_topk" in names[0])
+    k7_rows[0]["device_kernels"] = router
+
     # off the path, at the same shapes
     rng = np.random.default_rng(SEED + 10)
     ties = torch.from_numpy(rng.integers(0, 4, x7.shape).astype(np.float32))
@@ -1273,7 +1352,28 @@ def run_phase_h(dev, check, rows):
                     ("bfloat16", x7.to(torch.bfloat16)),
                     ("int32", torch.from_numpy(rng.integers(
                         -10_000, 10_000, x7.shape, dtype=np.int32)).to(dev))):
-        hold_topk(check, f"H K7 {case}", x, k7, *tk.K7(x, k7))
+        hold_topk(check, f"H K7 {case}", x, k7, *tk.K7(x, k7, npow7), npow7)
+    # ±0.0 and NaN of either sign: the oracle's order (the plain network
+    # compares values as floats and differs there)
+    for dt in (torch.float32, torch.bfloat16):
+        x = special_topk_rows(SEED + 13, tuple(x7.shape), dt, dev)
+        hold_topk(check, f"H K7 ±0.0/NaN {dt}", x, k7,
+                  *tk.K7(x, k7, npow7), npow7, plain=False)
+    # rows above the full network's 4096 (the partial walk, k ≤ 32), and
+    # the full network (k > 32) at the prefill's padded width
+    wide = torch.from_numpy(rng.standard_normal(TOPK_WIDE, dtype=np.float32)
+                            ).to(dev)
+    full = tk.pad_to(x7, npow7)
+    for case, x, k in ((f"{TOPK_WIDE} float32 k=8", wide, 8),
+                       (f"{tuple(full.shape)} float32 k={TOPK_FULL_K} "
+                        f"(full network)", full, TOPK_FULL_K)):
+        K7.launches = 0
+        vals, idx = tk.topk_kernel(x, k)
+        own = K7.launches
+        err = hold_topk(check, f"H K7 {case}", x, k, vals, idx)
+        rows.append(topk_row(f"H topk {case}", own, err, x, k, x.shape[1],
+                             launches_counted_in="own call"))
+    del wide, full
     shape_q = (LM_BATCH, cfg.n_heads, LM_PROMPT, cfg.head_dim)
     for case, sq_, dt in (("causal sq < sk bfloat16", LM_PROMPT // 2,
                            torch.bfloat16),

@@ -1,12 +1,13 @@
 // The tile of the bitonic-network kernels (sortnet.cu: K5, K6; topk.cu:
-// K7). A block holds TILE keys in registers, PER_THREAD a thread. In K5
-// and K7 key e of a thread sits at tile index
+// K7's full network). A block holds TILE keys in registers, PER_THREAD a
+// thread. In K7's full network key e of a thread sits at tile index
 // ((warp * PER_THREAD + e) << 5) | lane (tile_index), so a partner at
 // distance j < 32 is lane ^ j of the same warp (__shfl_xor_sync) and
-// larger distances go through shared memory; K6 has layouts of its own
-// (sortnet.cu). Keys
-// are compared in Key<T>::C: bf16 as float (__bfloat162float is exact, and
-// Key::out takes the bits back, so keys leave as they came, NaN too).
+// larger distances go through shared memory; K5 and K6 have layouts of
+// their own (sortnet.cu). K5 and K6 compare keys in Key<T>::C: bf16 as
+// float (__bfloat162float is exact, and Key::out takes the bits back, so
+// keys leave as they came, NaN too); K7 compares their sortable integer
+// form (topk.cu, Order<T>).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -23,18 +23,22 @@
 //  * Chunks never straddle tiles (TILE is a multiple of every supported
 //    chunk), so a ragged last tile just pads whole chunks it never stores.
 //  * bf16 keys are compared as float (__bfloat162float is exact), so a
-//    tile holds 4-byte keys for every type: 16 KiB of shared memory.
+//    tile holds 4-byte keys for every type: 16 KiB of shared memory (in
+//    K5 every instance, for its staged loads; in K6 from L = 5).
 //  * Offsets are 64-bit.
 //
-// K5 keeps the tile of bitonic_tile.cuh (a width given at run time, the
-// direction of each pair computed per key; distances j < 32 through
-// __shfl_xor_sync, larger ones through shared memory). K6 is specialised
-// on the merge size (one instance per L = log2(2w), 1 … 12): its layers
-// run on keys a thread holds, with a shared-memory transpose between
-// groups of four bits (see the K6 section below). It reads b reversed
-// within each chunk while loading, so the tile holds the bitonic
-// sequence (a, reverse(b)) and only the merge layers run; it writes the
-// lower half to lo and the upper half to hi.
+// Both are specialised on the network's size: one instance per L =
+// log2(width) for K5 and per L = log2(2w) for K6, 1 … 12, so every
+// layer's partner, and its direction wherever that is a register bit, is
+// known at compile time. A thread holds 16 keys of a 4096-key tile in
+// one of three layouts (the K6 section below); a layer on a register bit
+// runs on keys the thread holds, one on a lane bit through
+// __shfl_xor_sync (K5), and a swizzled shared-memory transpose moves the
+// tile between layouts. K5 loads and stores each warp's 512 keys as
+// 16-byte vectors on consecutive addresses. K6 reads b reversed within
+// each chunk while loading, so the tile holds the bitonic sequence
+// (a, reverse(b)) and only the merge layers run; it writes the lower
+// half to lo and the upper half to hi.
 #include "bitonic_tile.cuh"
 
 namespace {
@@ -47,61 +51,6 @@ __device__ __forceinline__ C cas(C self, C other, bool lower, bool up) {
   bool keep_lo = lower ? up : !up;
   bool self_is_lo = lower ? (self <= other) : (self < other);
   return keep_lo == self_is_lo ? self : other;
-}
-
-// The layers (k, j) for k = k_first .. width (doubling), j = k/2 .. 1.
-// Sort: k_first = 2. Merge of a bitonic chunk: k_first = width.
-template <typename C>
-__device__ __forceinline__ void network(C (&v)[PER_THREAD], C* smem,
-                                        int width, int k_first,
-                                        bool descending) {
-  for (int k = k_first; k <= width; k <<= 1) {
-    for (int j = k >> 1; j >= 1; j >>= 1) {
-      if (j >= 32) {
-#pragma unroll
-        for (int e = 0; e < PER_THREAD; ++e) smem[tile_index(e)] = v[e];
-        __syncthreads();
-#pragma unroll
-        for (int e = 0; e < PER_THREAD; ++e) {
-          int i = tile_index(e);
-          bool up = (((i & (width - 1)) & k) == 0) != descending;
-          v[e] = cas(v[e], smem[i ^ j], (i & j) == 0, up);
-        }
-        __syncthreads();
-      } else {
-#pragma unroll
-        for (int e = 0; e < PER_THREAD; ++e) {
-          int i = tile_index(e);
-          bool up = (((i & (width - 1)) & k) == 0) != descending;
-          C other = __shfl_xor_sync(0xffffffffu, v[e], j);
-          v[e] = cas(v[e], other, (i & j) == 0, up);
-        }
-      }
-    }
-  }
-}
-
-// K5: sort every `width`-chunk of x (n keys, contiguous) into out.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-k5_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
-               int width, bool descending) {
-  using K = Key<T>;
-  using C = typename K::C;
-  __shared__ C smem[TILE];
-  C v[PER_THREAD];
-  const int64_t base = (int64_t)blockIdx.x * TILE;
-#pragma unroll
-  for (int e = 0; e < PER_THREAD; ++e) {
-    int64_t g = base + tile_index(e);
-    v[e] = g < n ? K::in(x[g]) : C(0);
-  }
-  network(v, smem, width, 2, descending);
-#pragma unroll
-  for (int e = 0; e < PER_THREAD; ++e) {
-    int64_t g = base + tile_index(e);
-    if (g < n) out[g] = K::out(v[e]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -202,6 +151,152 @@ __device__ __forceinline__ void store_run(T* p,
 #pragma unroll
   for (int k = 0; k < int(N * sizeof(T) / 16); ++k)
     reinterpret_cast<uint4*>(p)[k] = reinterpret_cast<const uint4*>(raw)[k];
+}
+
+// ---------------------------------------------------------------------------
+// K5: the sort, specialised on its width
+// ---------------------------------------------------------------------------
+// A sort of 2^L keys runs stages S = 1 … L (the network's k = 2^S), stage
+// S its layers on index bits S-1 … 0; a pair's direction is bit S of its
+// index (up when clear, XOR descending), and at S = L every pair is up.
+// Keys enter and leave in layout 0, 16 consecutive keys a thread (staged
+// through shared memory, k5_sort_kernel): bits 0–3 are registers, 4–8
+// lanes, 9–11 warps. A layer on bits 0–3 pairs
+// keys the thread holds, one on bits 4–8 pairs lane l with lane
+// l ^ 2^(bit-4) (__shfl_xor_sync), so every stage up to S = 9 runs in
+// layout 0. Stages S ≥ 10 also touch the warp bits: their layers on bits
+// S-1 … 8 run in layout 2 (registers 8–11), one transpose there and one
+// back, then bits 7 … 0 in layout 0 (at L = 12, six transposes). At
+// L ≤ 4 a thread holds whole chunks: every layer runs in registers.
+
+// The layer on tile-index bit B of stage S in layout Q (base: this
+// thread's register 0 in Q).
+template <int Q, int B, int S, int L, typename C>
+__device__ __forceinline__ void sort_layer(C (&v)[PER_THREAD], int base,
+                                           bool descending) {
+  if constexpr (B >= 4 * Q && B < 4 * Q + 4) {
+#pragma unroll
+    for (int e = 0; e < PER_THREAD; ++e) {
+      const int f = e | (1 << (B - 4 * Q));
+      if (f == e) continue;
+      const bool up =
+          (S == L || (((base | (e << (4 * Q))) >> S) & 1) == 0) != descending;
+      const C x = v[e], y = v[f];
+      v[e] = cas(x, y, true, up);
+      v[f] = cas(y, x, false, up);
+    }
+  } else {
+    static_assert(Q == 0 && B >= 4 && B <= 8, "a lane bit of layout 0");
+    const int m = 1 << (B - 4);
+    const bool lower = (threadIdx.x & m) == 0;
+#pragma unroll
+    for (int e = 0; e < PER_THREAD; ++e) {
+      const bool up = (S == L || (((base | e) >> S) & 1) == 0) != descending;
+      v[e] = cas(v[e], __shfl_xor_sync(0xffffffffu, v[e], m), lower, up);
+    }
+  }
+}
+
+// Layers on bits HI … LO of stage S in layout Q.
+template <int Q, int S, int HI, int LO, int L, typename C>
+__device__ __forceinline__ void sort_layers(C (&v)[PER_THREAD], int base,
+                                            bool descending) {
+  if constexpr (HI >= LO) {
+    sort_layer<Q, HI, S, L>(v, base, descending);
+    sort_layers<Q, S, HI - 1, LO, L>(v, base, descending);
+  }
+}
+
+// Stages S … L.
+template <int S, int L, typename C>
+__device__ __forceinline__ void sort_stages(C (&v)[PER_THREAD], C* smem,
+                                            bool descending) {
+  if constexpr (S <= L) {
+    if constexpr (S <= 9) {
+      sort_layers<0, S, S - 1, 0, L>(v, layout_base<0>(), descending);
+    } else {
+      transpose<0, 2, true>(v, smem);      // after the stage's reads
+      sort_layers<2, S, S - 1, 8, L>(v, layout_base<2>(), descending);
+      transpose<2, 0, true>(v, smem);
+      sort_layers<0, S, 7, 0, L>(v, layout_base<0>(), descending);
+    }
+    sort_stages<S + 1, L>(v, smem, descending);
+  }
+}
+
+// Where vector u (16 bytes) of a warp's 512 keys sits in its stage: the
+// U vectors of thread u / U, their order XOR-swizzled by that thread's
+// index so that the eight 16-byte accesses of each quarter-warp (each
+// phase of a 128-bit shared access) touch eight distinct bank groups,
+// both when lanes store consecutive vectors and when each lane reads its
+// own U.
+template <int U>
+__device__ __forceinline__ int stage_slot(int u) {
+  const int t = u / U;
+  return t * U + ((u % U) ^ ((t / (8 / U)) & (U - 1)));
+}
+
+// K5: sort every 2^L-key chunk of x (n keys, contiguous) into out; vec:
+// both 16-byte aligned. A warp whose 512 keys all exist loads them as
+// 16-byte vectors on consecutive addresses (a warp's load: 512
+// contiguous bytes) and hands each lane its 16 keys of layout 0 through
+// a swizzled stage in shared memory; the stores go back the same way.
+// Other warps (the ragged end) move key by key.
+template <typename T, int L>
+__global__ void __launch_bounds__(THREADS)
+k5_sort_kernel(const T* __restrict__ x, T* __restrict__ out, int64_t n,
+               bool descending, bool vec) {
+  using K = Key<T>;
+  using C = typename K::C;
+  constexpr int U = PER_THREAD * sizeof(T) / 16;     // vectors a thread
+  __shared__ uint4 buf[TILE * sizeof(C) / 16];       // stage, transposes
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t w0 = (int64_t)blockIdx.x * TILE + warp * 32 * PER_THREAD;
+  const int64_t g0 = w0 + lane * PER_THREAD;         // layout 0
+  const bool whole = vec && w0 + 32 * PER_THREAD <= n;   // warp-uniform
+  uint4* stage = buf + warp * 32 * U;
+  C v[PER_THREAD];
+  if (whole) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + w0);
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      stage[stage_slot<U>(j * 32 + lane)] = src[j * 32 + lane];
+    __syncwarp();
+    alignas(16) T raw[PER_THREAD];
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      reinterpret_cast<uint4*>(raw)[j] = stage[stage_slot<U>(lane * U + j)];
+#pragma unroll
+    for (int t = 0; t < PER_THREAD; ++t) v[t] = K::in(raw[t]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < PER_THREAD; ++t)
+      v[t] = g0 + t < n ? K::in(x[g0 + t]) : C(0);
+  }
+  if constexpr (L >= 10) {
+    sort_stages<1, L>(v, reinterpret_cast<C*>(buf), descending);
+    __syncthreads();                  // the last transpose's reads are done
+  } else {
+    sort_stages<1, L>(v, (C*)nullptr, descending);
+  }
+  if (whole) {
+    alignas(16) T raw[PER_THREAD];
+#pragma unroll
+    for (int t = 0; t < PER_THREAD; ++t) raw[t] = K::out(v[t]);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      stage[stage_slot<U>(lane * U + j)] = reinterpret_cast<uint4*>(raw)[j];
+    __syncwarp();
+    uint4* dst = reinterpret_cast<uint4*>(out + w0);
+#pragma unroll
+    for (int j = 0; j < U; ++j)
+      dst[j * 32 + lane] = stage[stage_slot<U>(j * 32 + lane)];
+  } else {
+#pragma unroll
+    for (int t = 0; t < PER_THREAD; ++t)
+      if (g0 + t < n) out[g0 + t] = K::out(v[t]);
+  }
 }
 
 // Where chunk c's row starts: (row, first column of the chunk).
@@ -311,15 +406,32 @@ k6_merge_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+template <typename T, int L>
+int launch_sort_l(const T* x, T* out, int64_t n, bool descending, bool vec,
+                  cudaStream_t s) {
+  k5_sort_kernel<T, L><<<(unsigned)((n + TILE - 1) / TILE), THREADS, 0, s>>>(
+      x, out, n, descending, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_sort(const void* x, void* out, int64_t n, int width,
                 int descending, cudaStream_t s) {
   if (width < 2 || width > TILE || (width & (width - 1)) || n % width)
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  k5_sort_kernel<T><<<(unsigned)((n + TILE - 1) / TILE), THREADS, 0, s>>>(
-      (const T*)x, (T*)out, n, width, descending != 0);
-  return (int)cudaGetLastError();
+  const bool vec = (uintptr_t)x % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const T* tx = (const T*)x;
+  T* to = (T*)out;
+  const bool desc = descending != 0;
+  switch (log2_of(width)) {
+#define K5_CASE(L) \
+  case L: return launch_sort_l<T, L>(tx, to, n, desc, vec, s);
+    K5_CASE(1) K5_CASE(2) K5_CASE(3) K5_CASE(4) K5_CASE(5) K5_CASE(6)
+    K5_CASE(7) K5_CASE(8) K5_CASE(9) K5_CASE(10) K5_CASE(11) K5_CASE(12)
+#undef K5_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int L>

@@ -175,15 +175,12 @@ def chunk_scan_state(a, b, axis: int = 1, mode=None):
 # ---------------------------------------------------------------------------
 
 def _topk_kernel(x, k: int, *, interpret: bool = False):
+    # rows of n stand for rows of the next power of two padded with the
+    # dtype's minimum (never -inf), as the reference pads them: K7 reads
+    # them in place, the plain network gets the padded copy
     x2d, lead = _as_rows(x, x.shape[-1])
-    n = x2d.shape[1]
-    npow = 1 << (n - 1).bit_length()
-    if npow != n:       # pad with the dtype's minimum (never -inf)
-        fill = (torch.finfo(x.dtype).min if x.dtype.is_floating_point
-                else torch.iinfo(x.dtype).min)
-        x2d = torch.cat([x2d, x2d.new_full((x2d.shape[0], npow - n), fill)],
-                        dim=1)
-    vals, idx = _tk.topk_kernel(x2d, k, interpret=interpret)
+    npow = 1 << (x2d.shape[1] - 1).bit_length()
+    vals, idx = _tk.topk_kernel(x2d, k, npow=npow, interpret=interpret)
     return (vals.reshape(*lead, k), idx.reshape(*lead, k))
 
 

@@ -120,13 +120,35 @@ def stream_triad(a: torch.Tensor, b: torch.Tensor, s) -> torch.Tensor:
 
 # -- c5_topk (router top-k via sorting network) ------------------------------
 
+_BITS = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+         torch.float16: torch.int16, torch.float64: torch.int64}
+
+
+def sortable_key(x: torch.Tensor) -> torch.Tensor:
+    """An integer key per element whose order is ``lax.top_k``'s order of
+    the values: for floats the bits ``b`` of each value map to
+    ``b ^ ((b >> 31) & 0x7fffffff)`` (on 16 bits for bfloat16), so that
+    +0.0 ranks above -0.0, a NaN with a clear sign bit above +inf and one
+    with the sign bit set below -inf; integers are their own key."""
+    if not x.dtype.is_floating_point:
+        return x
+    b = x.view(_BITS[x.dtype])
+    return b ^ ((b >> (8 * b.element_size() - 1)) & torch.iinfo(b.dtype).max)
+
+
 def topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k along the last axis: (values descending, int32 indices), equal
-    values in ascending index order as ``lax.top_k`` orders them
-    (``torch.topk`` does not promise an order for ties; a stable sort
-    does)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k].to(torch.int32)
+    """Top-k along the last axis: (values descending, int32 indices) in
+    ``lax.top_k``'s order: :func:`sortable_key` descending, equal keys in
+    ascending index order (a stable sort; ``torch.topk`` promises no
+    order for ties, and ``torch.sort`` puts NaN first whatever its sign
+    and does not tell -0.0 from +0.0). Values leave by their own bits
+    (gathered as integers: a bfloat16 gather makes every NaN one NaN)."""
+    _, idx = torch.sort(sortable_key(x), dim=-1, descending=True,
+                        stable=True)
+    idx = idx[..., :k]
+    bits = x.view(_BITS.get(x.dtype, x.dtype))
+    return (torch.gather(bits, -1, idx).view(x.dtype),
+            idx.to(torch.int32))
 
 
 # -- c6_flashattn (fused attention "instruction") ----------------------------

@@ -22,10 +22,14 @@ The kernels are CUDA C++ (``csrc/sortnet.cu``, built by ``_cuda.py``):
 Both run a grid over all tiles of the operand (a sort has no carry) and
 take chunks of up to :data:`MAX_CHUNK` keys: a sorted chunk of up to
 4096, or two merged halves of up to 2048. Rows need no padding: a
-chunk never spans two rows, and the kernels stop at the last key. K6 is
-built once per merge size (L = log2(2w), 1 … 12): its layers run on keys
-a thread holds, four index bits at a time, with a shared-memory
-transpose between groups, and it stores 16-byte vectors.
+chunk never spans two rows, and the kernels stop at the last key. Both
+are built once per network size (L = 1 … 12: log2(width) for K5,
+log2(2w) for K6): their layers run on keys a thread holds, with
+shuffles (K5) or shared-memory transposes between groups of index bits.
+K5 moves each warp's keys as 16-byte vectors on consecutive addresses;
+K6 stores 16-byte vectors. A wider chunk would need a merge across
+blocks, a kernel of its own: ``sortnet_mergesort`` sends none (its
+``max_kernel_width`` is 4096, as in the reference).
 """
 from __future__ import annotations
 

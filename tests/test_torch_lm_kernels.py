@@ -7,8 +7,11 @@ mode, so every test here is marked ``gpu`` and skips without a CUDA
 device. Run them on an H100 with
 ``pytest -m gpu tests/test_torch_lm_kernels.py``.
 
-Tolerances: K7 bit-exact (values and indices; the kernel takes the same
-selects as the plain network, ties in ascending index order). K8 (in
+Tolerances: K7 bit-exact (values by their bits, and indices) against
+the oracle ``ref.topk`` (lax.top_k's order: ties in ascending index,
++0.0 above -0.0, NaN by its sign above +inf or below -inf), and against
+the plain network (the JAX kernel's) on rows without NaN and without
+both signed zeros, where the two orders agree. K8 (in
 bfloat16 on the tensor cores, p·v with p split into three bf16 terms) per
 row within the fp32 summation bound of two orders,
 ``(D·eps·scale·max_j Σ_d|q_id·k_jd| + sk·eps)·2·max|v|``, and in
@@ -72,30 +75,66 @@ def keys(shape, dtype, seed, dev, ties=False):
                             ).to(dev, dtype)
 
 
-@pytest.mark.parametrize("ties", [False, True])
+def same_bits(a, b):
+    view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("ties", [False, True, "special"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
-@pytest.mark.parametrize("n", [8, 64, 512, 4096])
-def test_k7_matches_plain_and_oracle(cuda, n, dtype, ties):
-    x = keys((37, n), DTYPES[dtype], n, cuda, ties)
-    for k in sorted({1, 8, n}):
+@pytest.mark.parametrize("n", [8, 64, 512, 4096, 8192])
+def test_k7_matches_plain_and_oracle(cuda, smoke, n, dtype, ties):
+    # k ≤ 32 takes the partial walk, k > 32 the full network (n ≤ 4096);
+    # "special": ±0.0 and NaN of either sign, against the oracle only
+    if ties == "special" and dtype == "int32":
+        x = keys((37, n), torch.int32, n, cuda, True)
+    elif ties == "special":
+        x = smoke.special_topk_rows(n, (37, n), DTYPES[dtype], cuda)
+    else:
+        x = keys((37, n), DTYPES[dtype], n, cuda, ties)
+    for k in sorted({1, 8, 32, 40, n}):
+        if k > n or (k > tk.MAX_PARTIAL_K and n > tk.MAX_WIDTH):
+            continue
         vals, idx = tk.topk_kernel(x, k)
-        for want in (tk.topk_plain(x, k), ref.topk(x, k)):
-            assert torch.equal(vals, want[0]) and torch.equal(idx, want[1])
+        wants = [ref.topk(x, k)]
+        if ties != "special":
+            wants.append(tk.topk_plain(x, k))
+        for want in wants:
+            assert same_bits(vals, want[0]) and torch.equal(idx, want[1])
         assert idx.dtype == torch.int32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("cols", [384, 5, 100])
+def test_k7_reads_rows_in_place(cuda, cols, dtype):
+    # rows of n standing for rows of npow: as the padded copy, with rows
+    # strided (stride 387: key-by-key loads) and not, on both routes
+    npow = 1 << (cols - 1).bit_length()
+    wide = keys((50, 387), DTYPES[dtype], cols, cuda)
+    for k in (k for k in (1, 8, 32, 40) if k <= npow):
+        for x in (wide[:, :cols], wide[:, :cols].contiguous()):
+            vals, idx = tk.K7(x, k, npow)
+            want = ref.topk(tk.pad_to(x, npow), k)
+            assert same_bits(vals, want[0]) and torch.equal(idx, want[1])
 
 
 def test_k7_router_shape_through_the_isa(cuda):
     x = keys((4096, 384), torch.float32, 0, cuda)
     tk.K7.launches = 0
-    v, i = ops.topk(x, 8)                       # auto → K7 on CUDA
+    v, i = ops.topk(x, 8)                       # auto → K7 on CUDA, in place
     assert tk.K7.launches == 1
+    w = ref.topk(tk.pad_to(x, 512), 8)
+    assert torch.equal(v, w[0]) and torch.equal(i, w[1])
     pv, pi = ops.topk(x, 8, mode="interpret")
     assert torch.equal(v, pv) and torch.equal(i, pi)
 
 
 def test_k7_rejects_what_it_does_not_take(cuda):
+    # k ≤ 32 at n 8192 is served (the partial walk); k > 32 is not
+    assert tk.topk_kernel(torch.zeros(2, 8192, device=cuda), 32)[1].shape \
+        == (2, 32)
     with pytest.raises(ValueError, match="at most 4096"):
-        tk.topk_kernel(torch.zeros(2, 8192, device=cuda), 8)
+        tk.topk_kernel(torch.zeros(2, 8192, device=cuda), 33)
     with pytest.raises(ValueError, match="k=9"):
         tk.topk_kernel(torch.zeros(2, 8, device=cuda), 9)
 

@@ -113,6 +113,23 @@ def special_keys(shape, dtype, seed, dev):
     return torch.from_numpy(rng.choice(pool, shape)).to(dtype).to(dev)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("width", [1 << k for k in range(1, 13)])  # L 1 … 12
+@pytest.mark.parametrize("descending", [False, True])
+def test_k5_sorts_ties_zeros_and_nan_as_the_network(cuda, width, dtype,
+                                                    descending):
+    # ±0.0, NaN and ties, a ragged last tile, and a start one key past a
+    # 16-byte boundary (key-by-key loads)
+    cols = width * -(-1500 // width)
+    x = special_keys((3, cols + 1), DTYPES[dtype], width, cuda)
+    for t in (x[:, :cols].contiguous(), x.view(-1)[1:3 * cols + 1].view(
+            3, cols)):
+        got = sn.sort_chunks_kernel(t, width=width, descending=descending)
+        want = sn.sort_chunks_kernel(t, width=width, descending=descending,
+                                     interpret=True)
+        assert same_bits(got, want)
+
+
 def k6_merge(a, b, w, descending):
     """K6 through its wrapper; w = 1 (L = 1), which the wrapper rejects as
     the reference does, through K6 itself."""

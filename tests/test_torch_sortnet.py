@@ -518,3 +518,146 @@ def test_k6_layouts_merge_as_the_network(w, dtype, descending, rows, chunks):
                                       torch.bfloat16 else torch.int32),
                                p.view(torch.int16 if p.dtype ==
                                       torch.bfloat16 else torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K5's layouts (csrc/sortnet.cu): one instance per width, emulated on the
+# CPU thread by thread — 16 consecutive keys a thread in layout 0, layers
+# on register bits in the thread, on lane bits through the shuffle
+# partner, stages past bit 8 through layout 2 and back — held against the
+# plain network. The kernel itself runs only on the card.
+# ---------------------------------------------------------------------------
+
+def k5_cas(x, y, lower, up):
+    """cas(self=x, other=y, lower, up), elementwise over threads."""
+    keep_lo = up if lower else ~up
+    self_is_lo = (x <= y) if lower else (x < y)
+    return torch.where(keep_lo == self_is_lo, x, y)
+
+
+def k5_stage_slot(u, per_thread_vectors):
+    """sortnet.cu stage_slot<U>: where vector u of a warp's span sits."""
+    U = per_thread_vectors
+    t = u // U
+    return t * U + ((u % U) ^ ((t // (8 // U)) & (U - 1)))
+
+
+def k5_emulated(x, width, descending=False, aligned=True):
+    """K5's data flow for the tiles of x (rows of whole chunks): each
+    warp whose 512 keys all exist (and ``aligned``: the pointer check)
+    moves them as 16-byte vectors through its swizzled stage, the others
+    key by key (keys past the end are 0), giving each thread 16
+    consecutive keys of layout 0; stages S = 1 … L, each its layers on
+    bits S-1 … 0 — in layout 0 up to S = 9; from S = 10 bits S-1 … 8 in
+    layout 2 between two transposes through the swizzled tile — and the
+    stores from layout 0 the same way back."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    L = width.bit_length() - 1
+    keys = flat.float() if flat.dtype == torch.bfloat16 else flat
+    out = torch.zeros(n, dtype=keys.dtype)
+    t = torch.arange(K6_THREADS)
+    lane, warp = t & 31, t >> 5
+    per_vec = 16 // x.element_size()               # keys of one vector
+    U = K6_PER // per_vec                          # vectors a thread
+    slot = lambda u: k5_stage_slot(u, U)           # noqa: E731
+
+    def layer(v, q, bit, s):
+        base = k6_layout_base(q)
+        for e in range(K6_PER):
+            up = ((s == L) | ((((base | (e << 4 * q)) >> s) & 1) == 0)
+                  ) != descending
+            if 4 * q <= bit < 4 * q + 4:          # a register bit
+                f = e | (1 << (bit - 4 * q))
+                if f != e:
+                    a, b = v[:, e].clone(), v[:, f].clone()
+                    v[:, e], v[:, f] = (k5_cas(a, b, True, up),
+                                        k5_cas(b, a, False, up))
+            else:                                 # a lane bit of layout 0
+                assert q == 0 and 4 <= bit <= 8
+                m = 1 << (bit - 4)
+                lower = (t & m) == 0
+                other = v[t ^ m, e]
+                v[:, e] = torch.where(lower, k5_cas(v[:, e], other, True, up),
+                                      k5_cas(v[:, e], other, False, up))
+
+    def transpose(v, qf, qt):
+        smem = torch.empty(K6_TILE, dtype=v.dtype)
+        for e in range(K6_PER):
+            smem[k6_swz(k6_layout_base(qf)) ^ k6_swz(e << 4 * qf)] = v[:, e]
+        for e in range(K6_PER):
+            v[:, e] = smem[k6_swz(k6_layout_base(qt)) ^ k6_swz(e << 4 * qt)]
+
+    for tile in range(-(-n // K6_TILE)):
+        w0 = tile * K6_TILE + warp * 32 * K6_PER
+        g0 = w0 + lane * K6_PER                    # layout 0
+        whole = aligned & (w0 + 32 * K6_PER <= n)  # warp-uniform
+        v = torch.stack([torch.where(g0 + e < n, keys[(g0 + e).clamp(
+            max=n - 1)], torch.zeros((), dtype=keys.dtype))
+            for e in range(K6_PER)], 1)
+        for w in range(8):                         # the staged warps
+            if not bool(whole[32 * w]):
+                continue
+            span = keys[int(w0[32 * w]):][:32 * K6_PER].view(-1, per_vec)
+            stage = torch.empty_like(span)
+            for j in range(U):
+                u = j * 32 + torch.arange(32)
+                stage[slot(u)] = span[u]
+            for ln in range(32):
+                got = stage[slot(ln * U + torch.arange(U))].reshape(-1)
+                v[32 * w + ln] = got
+        for s in range(1, L + 1):
+            if s <= 9:
+                for bit in range(s - 1, -1, -1):
+                    layer(v, 0, bit, s)
+                continue
+            transpose(v, 0, 2)
+            for bit in range(s - 1, 7, -1):
+                layer(v, 2, bit, s)
+            transpose(v, 2, 0)
+            for bit in range(7, -1, -1):
+                layer(v, 0, bit, s)
+        for w in range(8):
+            if bool(whole[32 * w]):                # back through the stage
+                stage = torch.empty(32 * U, per_vec, dtype=v.dtype)
+                for ln in range(32):
+                    stage[slot(ln * U + torch.arange(U))] = v[
+                        32 * w + ln].view(U, per_vec)
+                at = int(w0[32 * w])
+                out[at:at + 32 * K6_PER] = stage[slot(torch.arange(
+                    32 * U))].reshape(-1)
+                continue
+            for e in range(K6_PER):
+                g = g0[32 * w:32 * w + 32] + e
+                out[g[g < n]] = v[32 * w:32 * w + 32][g < n, e]
+    return out.to(x.dtype).reshape(x.shape)
+
+
+@pytest.mark.parametrize("per_thread_vectors", [4, 2])   # 4-byte, bf16
+def test_k5_stage_is_a_permutation_without_bank_conflicts(per_thread_vectors):
+    U = per_thread_vectors
+    u = torch.arange(32 * U)
+    slots = k5_stage_slot(u, U)
+    assert torch.equal(slots.sort().values, u)
+    for j in range(U):
+        # lanes store consecutive vectors, then each reads its own U; a
+        # 128-bit access runs a quarter-warp (8 lanes) at a time and needs
+        # 8 distinct 16-byte bank groups (slot mod 8)
+        for access in (k5_stage_slot(j * 32 + torch.arange(32), U),
+                       k5_stage_slot(torch.arange(32) * U + j, U)):
+            for quarter in access.view(4, 8):
+                assert len(set((quarter % 8).tolist())) == 8
+
+
+@pytest.mark.parametrize("width", [1 << k for k in range(1, 13)])
+@pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])
+@pytest.mark.parametrize("descending", [False, True])
+def test_k5_layouts_sort_as_the_network(width, dtype, descending):
+    # ≥ 4500 keys: two tiles or more, and below width 4096 a ragged last
+    # tile (at width < 16 a thread's last run is cut short)
+    cols = width * -(-1500 // width)
+    x = k6_keys((3, cols), dtype, width)
+    got = k5_emulated(x, width, descending, aligned=width != 64)
+    want = sn.sort_chunks_plain(x, width, descending)
+    view = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(view), want.view(view))
