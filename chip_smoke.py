@@ -18,6 +18,9 @@ holds each against its plain PyTorch version and the torch oracles on
 the card, times it (CUDA events around each call while the device is
 held busy, so the time is device time; and host wall time per call),
 and prints one ``kernels`` JSON line and, last, the device JSON line.
+Phase I serves two tenants through the scheduler, whose batches and plan
+parts launch K1, and prints a ``sched`` JSON line before the kernels
+line.
 Exits non-zero, printing no result, when no CUDA device is visible or
 any phase fails.
 
@@ -67,6 +70,21 @@ Phases (inputs from numpy with a fixed seed):
      K8 in float32). The same
      request through the plain path (isa.use("interpret")) is printed
      beside it, not gated: near-tied router logits may flip an expert
+  I  the multi-tenant scheduler (repro_torch.sched) with
+     CostModel(hierarchy=H100), weighted fair queueing over two lanes,
+     wall clock: tenant A submits 16 fuse(c0_scale, c0_add) requests of
+     2²² float32 sharing one scalar (one coalesced batch: one
+     k1_batch_kernel launch on the items in place); tenant B submits
+     the axpby_residual and saxpby plans of ops.c0_pipeline_graph,
+     partitioned under the H100 preset at 2²⁶ (two parts, two K1
+     launches each). One torch.profiler trace of the run holds those
+     five kernels and no copy; the recorded run replays. Printed in the
+     ``sched`` line: each batch's predicted and observed ms, each plan's
+     device ms against its unfused partition (one launch a node) on the
+     same inputs, host µs per dispatch (wall per batch less device per
+     batch) for the same mix at 2¹², and a least-squares fit of
+     t = overhead_s + bytes / peak_bw to c0_copy's device time at
+     2¹⁰…2¹⁸ (H100_HBM.overhead_s is assumed, 1 µs)
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -76,6 +94,13 @@ Tolerances (fixed before any run):
   * every call_batch item: bit-identical to its solo K1 call (ragged,
     misaligned and carried items too: the batch masks the tail a solo
     call pads with zeros);
+  * I: every scheduled result bit-identical to that request's own solo
+    call (A's items to fuse(...)(s, x, b), each plan's outputs to the
+    plan called alone), and against ref at the multiply-add bound
+    4·eps_f32·Σ|term| (A: |s·x| + |b|; axpby_residual |s·x| + |b| and
+    |x| + |t·b|; saxpby |a·x| + |b·y|); the replay of the recorded wall
+    run takes the same decisions (item, lane, round, batch, predicted
+    time) and replays itself with placements_match true;
   * c7_absmax_scale: ≤ 2 ulp — Triton's fp32 ``/`` lowers to
     ``div.full.f32`` (≤ 2 ulp), torch divides with IEEE rounding;
   * sorts and merges (E): bit-exact against the plain network, the oracle
@@ -127,8 +152,9 @@ Tolerances (fixed before any run):
     runs on the same inputs bit-identical, the launch counts above;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
-    (padding the one-row operand to 8 rows would pass it), and for H the
-    weights' bytes + 8 GB.
+    (padding the one-row operand to 8 rows would pass it), for H the
+    weights' bytes + 8 GB, and 3 GB for I (≈ 0.8 GB for A's requests,
+    ≈ 1.6 GB for B's inputs and outputs).
 
 Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
 operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
@@ -172,12 +198,17 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import flashattn as fa  # noqa: E402
 from repro_torch.kernels import sortnet as sn  # noqa: E402
+from repro_torch.kernels import stream_copy  # noqa: E402
 from repro_torch.kernels import topk as tk  # noqa: E402
 from repro_torch.kernels.flashattn import K8  # noqa: E402
 from repro_torch.kernels.prefix_scan import K3, K4  # noqa: E402
 from repro_torch.kernels.sortnet import K5, K6  # noqa: E402
 from repro_torch.kernels.topk import K7  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.graph import partition  # noqa: E402
+from repro_torch.memhier import H100  # noqa: E402
+from repro_torch.sched import (CostModel, RequestQueue, Scheduler,  # noqa: E402
+                               TraceRecorder, placements_match, replay)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.params import DTYPES, param_specs, tree_items  # noqa: E402,E501
 
@@ -207,6 +238,13 @@ K5_WIDTHS = (("float32", 16), ("float32", 64), ("bfloat16", 64),
 LM_ARCH = "kimi_k2_1t"             # phase H: the served model
 LM_LAYERS = 2                      # of 61 (see the docstring)
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 1024, 16
+N_SCHED_ITEM, N_SCHED_ITEMS = 1 << 22, 16   # phase I: tenant A's requests
+N_SCHED_PLAN = 1 << 26             # phase I: tenant B's plans
+N_HOST = 1 << 12                   # phase I: the same mix for host overhead
+HOST_REPS = 10                     # phase I: runs of that mix
+FIT_NS = tuple(1 << k for k in range(10, 19))   # phase I: c0_copy sizes
+PLAN_S, PLAN_T = 1.5, 0.5          # axpby_residual's scalars
+SAX_A, SAX_B = 2.0, -0.75          # saxpby's scalars
 LM_REDUCED = ["n_layers 61 → 2: two layers of bf16 weights are 67.9 GiB "
               "on one 80 GB card",
               "attn_impl chunked → kernel: the switch under which prefill "
@@ -226,7 +264,7 @@ def weight_bytes(cfg) -> int:
 
 PEAK_MEM_LIMIT = {"A": 3e9, "B": 3e9, "C": 3e9, "D": 3e9,
                   "E": 6e9, "F": 4e9, "G": 4e9,
-                  "H": weight_bytes(lm_config()) + 8e9}
+                  "H": weight_bytes(lm_config()) + 8e9, "I": 3e9}
 KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
     "K1": ("triton", "src/repro_torch/core/fused_kernel.py",
            "src/repro/core/program.py:914"),
@@ -377,6 +415,43 @@ def phase_h(cfg, params, prompts, gen: int, mode):
     decode. Returns (tokens (B, gen), prefill s, decode s)."""
     with isa.use(mode):
         return serve.generate(cfg, params, prompts, gen)
+
+
+def sched_plans(n: int, model=H100):
+    """Tenant B's two plans, partitioned under ``model`` at ``n``
+    elements: axpby_residual (two parts) and saxpby (two parts)."""
+    return (partition(ops.c0_pipeline_graph("axpby_residual"), model=model,
+                      n_elems=n),
+            partition(ops.c0_pipeline_graph("saxpby"), model=model,
+                      n_elems=n))
+
+
+def phase_i(xs, bs, x, b, plans, mode, recorder=None, hierarchy=H100,
+            cost=None):
+    """Two tenants through the scheduler (weighted fair, two lanes, wall
+    clock): tenant A's fuse(c0_scale, c0_add) requests share one scalar
+    and coalesce into one batch; tenant B submits the two plans on
+    (x, b). ``cost`` defaults to a fresh CostModel over ``hierarchy``.
+    Returns (report, A's items, B's items)."""
+    q = RequestQueue()
+    fused = isa.fuse("c0_scale", "c0_add")
+    a_items = [q.submit(fused, (SCALE, xa, ba), tenant="A")
+               for xa, ba in zip(xs, bs)]
+    axpby, saxpby = plans
+    b_items = [q.submit(axpby, (x, b, PLAN_S, PLAN_T), tenant="B"),
+               q.submit(saxpby, (x, b, SAX_A, SAX_B), tenant="B")]
+    if cost is None:
+        cost = CostModel(hierarchy=hierarchy)
+    sched = Scheduler(q, cost=cost, policy="wfq", n_lanes=2, clock="wall",
+                      mode=mode, recorder=recorder)
+    return sched.drain(), a_items, b_items
+
+
+def plan_terms(kind: str, x, b):
+    """Σ|term| of each output of a tenant B plan (the FMA bound's)."""
+    if kind == "axpby_residual":
+        return ((PLAN_S * x).abs() + b.abs(), x.abs() + (PLAN_T * b).abs())
+    return ((SAX_A * x).abs() + (SAX_B * b).abs(),)
 
 
 class Tap:
@@ -542,6 +617,7 @@ def statescan_bound_misses(got, a, states, bc: int,
 # measurement helpers (card only)
 # ---------------------------------------------------------------------------
 
+CARD = ""                           # nvidia-smi's name and power limit
 GPU_CYCLES_PER_S = 2.0e9            # above the H100's top SM clock
 SPIN_CYCLES = 10_000_000            # ~5 ms: a spin around a traced call
 
@@ -1397,6 +1473,278 @@ def run_phase_h(dev, check, rows):
     del q, kk, vv, o8, plain8
 
 
+def outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+CHUNK = 1 << 22                    # phase I: elements a chunked check holds
+
+
+def hold_plan(check, what, plan, got, x, b, scalars) -> float:
+    """Each output of a tenant B plan against ``plan.ref`` (the FMA bound)
+    and the plain path, chunk by chunk (elementwise programs, so a chunk
+    of the inputs gives that chunk of the outputs); returns max |Δ| to
+    plain."""
+    kind = plan.graph.name.removeprefix("c0_")
+    err, bad = 0.0, [0] * len(got)
+    for lo in range(0, x.numel(), CHUNK):
+        xc, bc = x[lo:lo + CHUNK], b[lo:lo + CHUNK]
+        refs = outputs(plan.ref(xc, bc, *scalars))
+        plains = outputs(plan(xc, bc, *scalars, mode="interpret"))
+        for k, (g, r, pl, t) in enumerate(zip(got, refs, plains,
+                                              plan_terms(kind, xc, bc))):
+            gc = g[lo:lo + CHUNK]
+            bad[k] += int(((gc - r).abs() > 4 * EPS * t).sum())
+            err = max(err, max_abs(gc, pl))
+    for k, n in enumerate(bad):
+        check.true(f"{what} output {k} vs ref: {n} elements outside the "
+                   f"FMA bound", n == 0)
+    return err
+
+
+def batch_table(report, names) -> list[dict]:
+    """Per batch of a scheduler run: lane, round, predicted and observed
+    ms (the per-item shares summed: the batch's estimate and its wall
+    time) and their ratio."""
+    groups: dict = {}
+    for p in report.placements:
+        groups.setdefault(p.batch_seq, []).append(p)
+    table = []
+    for seq, ps in sorted(groups.items()):
+        pred = sum(p.predicted_s for p in ps) * 1e3
+        obs = sum(p.observed_s for p in ps) * 1e3
+        table.append({"batch": names[seq], "items": len(ps),
+                      "lane": ps[0].lane, "round": ps[0].round,
+                      "predicted_ms": pred, "observed_ms": obs,
+                      "observed_over_predicted": obs / pred})
+    return table
+
+
+def run_phase_i(dev, check, rows):
+    t0 = time.perf_counter()
+    plans = sched_plans(N_SCHED_PLAN)
+    partition_s = time.perf_counter() - t0
+    check.true(f"I: plans split {[p.chains() for p in plans]}, want two "
+               f"parts each", all(p.n_parts == 2 for p in plans))
+    def a_inputs():
+        arrays = make_inputs(SEED + 12, [N_SCHED_ITEM] * (2 * N_SCHED_ITEMS),
+                             dev)
+        return arrays[:N_SCHED_ITEMS], arrays[N_SCHED_ITEMS:]
+    xs, bs = a_inputs()
+    x, b = make_inputs(SEED + 15, [N_SCHED_PLAN] * 2, dev)
+    fused = isa.fuse("c0_scale", "c0_add")
+    shared = CostModel(hierarchy=H100)     # runs whose estimates go unread
+    marks = {}                             # peak bytes after each step
+
+    def mark(step):
+        marks[step] = [torch.cuda.memory_allocated(dev),
+                       torch.cuda.max_memory_allocated(dev)]
+    scalars = ((PLAN_S, PLAN_T), (SAX_A, SAX_B))
+
+    # the main path: both tenants through the scheduler, launches counted
+    # and the run recorded
+    rec = TraceRecorder()
+    K1.launches = K1.item_copies = 0
+    t0 = time.perf_counter()
+    rep, a_items, b_items = phase_i(xs, bs, x, b, plans, "auto",
+                                    recorder=rec)
+    cold_run_s = time.perf_counter() - t0
+    launches, copies = K1.launches, K1.item_copies
+    want = 1 + sum(p.n_parts for p in plans)
+    check.true(f"I: {launches} K1 launches, want {want} (one for A's "
+               f"batch, one per plan part)", launches == want)
+    check.true(f"I: {copies} batch items copied, want 0", copies == 0)
+    a_seqs = {it.seq for it in a_items}
+    check.true("I: A's requests did not run as one coalesced batch",
+               len({p.batch_seq for p in rep.placements
+                    if p.seq in a_seqs}) == 1
+               and all(p.coalesced for p in rep.placements
+                       if p.seq in a_seqs))
+    names = {a_items[0].seq: f"A {N_SCHED_ITEMS}x scale+add",
+             b_items[0].seq: "B axpby_residual", b_items[1].seq: "B saxpby"}
+    mark("main run")
+
+    # every result against its own solo call (bit for bit), ref and plain
+    errs_a = []
+    for it, xa, ba in zip(a_items, xs, bs):
+        got = rep.results.pop(it.seq)
+        it.result = None
+        check.shaped(f"I A item {it.seq}", got, xa.shape)
+        check.exact(f"I A item {it.seq} vs its solo call", got,
+                    fused(SCALE, xa, ba, mode="kernel"))
+        bound = fma_bound((SCALE * xa, ba))
+        check.within(f"I A item {it.seq} vs ref", got,
+                     fused(SCALE, xa, ba, mode="ref"), bound)
+        errs_a.append(max_abs(got, fused(SCALE, xa, ba, mode="interpret")))
+        del got, bound
+    mark("A's checks")
+    a0, b0, b1 = a_items[0].seq, b_items[0].seq, b_items[1].seq
+    got_b = [outputs(rep.results.pop(seq)) for seq in (b0, b1)]
+    del a_items, b_items, it, xa, ba, xs, bs   # A's inputs, made anew below
+    errs_b = []
+    for plan, sc, got in zip(plans, scalars, got_b):
+        what = f"I B {plan.graph.name}"
+        for k, (g, w) in enumerate(zip(got, outputs(
+                plan(x, b, *sc, mode="kernel")))):
+            check.shaped(f"{what} output {k}", g, x.shape)
+            check.exact(f"{what} output {k} vs its solo call", g, w)
+        del g, w                       # the loop's last output and solo
+        errs_b.append(hold_plan(check, what, plan, got, x, b, sc))
+        mark(f"{what} checks")
+    del got_b, rep, got
+
+    # the recorded wall run replays: the same decisions, and the replay
+    # replays itself exactly (placements_match)
+    rec2 = TraceRecorder()
+    rep_r = replay(TraceRecorder.loads(rec.dumps()), recorder=rec2)
+    rep_rr = replay(TraceRecorder.loads(rec2.dumps()))
+
+    def decisions(ps):
+        return [(p.seq, p.lane, p.round, p.batch_seq, p.predicted_s)
+                for p in ps]
+    wall_places = rec.placements()
+    xs, bs = a_inputs()
+    replay_ok = {
+        "decisions_match_wall_run": decisions(rep_r.placements)
+        == decisions(wall_places),
+        "placements_match": placements_match(rep_r.placements,
+                                             rep_rr.placements)}
+    check.true(f"I: replay {replay_ok}", all(replay_ok.values()))
+
+    # one trace of the whole run: one K1 kernel for A's batch and one per
+    # plan part, and nothing else on the device but the small host-to-
+    # device table copies
+    events = device_events(lambda: phase_i(xs, bs, x, b, plans, "auto",
+                                           cost=shared))
+    mark("trace")
+    kernels = None
+    if events is not None:
+        kernels = [name for name, _ in events
+                   if not name.startswith(("Memcpy", "Memset"))]
+        n_batch = sum("k1_batch_kernel" in k for k in kernels)
+        n_part = sum("k1_kernel" in k for k in kernels)
+        check.true(f"I: the run's kernels {kernels}, want one "
+                   f"k1_batch_kernel and {want - 1} k1_kernel",
+                   len(kernels) == want and n_batch == 1
+                   and n_part == want - 1)
+        dtod = [name for name, _ in events
+                if name.startswith("Memcpy") and "HtoD" not in name]
+        check.true(f"I: device copies {dtod}, want none", not dtod)
+
+    # a warm run: each batch's predicted (CostModel over the H100 preset)
+    # and observed ms
+    t0 = time.perf_counter()
+    rep2, a2, b2 = phase_i(xs, bs, x, b, plans, "auto")
+    warm_run_s = time.perf_counter() - t0
+    drift = batch_table(rep2, {a2[0].seq: names[a0],
+                               b2[0].seq: names[b0],
+                               b2[1].seq: names[b1]})
+    del rep2, a2, b2
+    mark("trace and warm run")
+
+    # kernel rows: each batch's launches, timed on the run's own inputs
+    # (one tenant's inputs at a time: the plain versions' temporaries)
+    del x, b
+    reqs = [(SCALE, xa, ba) for xa, ba in zip(xs, bs)]
+    n_a = N_SCHED_ITEM * N_SCHED_ITEMS
+    timed = time_ms(lambda: fused.program.call_batch(reqs))
+    plain = time_ms(lambda: fused.program.call_batch(reqs, interpret=True))
+    x2, b2s = torch.stack(xs), torch.stack(bs)
+    rows.append(entry(
+        f"I sched A: call_batch {N_SCHED_ITEMS}x scale+add, one scalar",
+        1, max(errs_a), timed, plain, 12 * n_a, 2 * n_a,
+        time_ms(lambda: torch.add(b2s, x2, alpha=SCALE)),
+        launches_counted_in="phase I's scheduler run"))
+    del x2, b2s, xs, bs, reqs
+    mark("A's row")
+    x, b = make_inputs(SEED + 15, [N_SCHED_PLAN] * 2, dev)
+    fusion = {}
+    for plan, sc, err, n_out in zip(plans, scalars, errs_b, (2, 1)):
+        unfused = partition(plan.graph, model=H100, n_elems=N_SCHED_PLAN,
+                            method="singletons")
+        timed = time_ms(lambda: plan(x, b, *sc, mode="kernel"))
+        unf = time_ms(lambda: unfused(x, b, *sc, mode="kernel"))
+        name = plan.graph.name
+        fusion[name] = {
+            "parts": plan.n_parts, "chains": plan.chains(),
+            "device_ms": timed[0], "unfused_parts": unfused.n_parts,
+            "unfused_device_ms": unf[0],
+            "unfused_over_fused": unf[0] / timed[0],
+            "hbm_bytes": plan.modeled_hbm_bytes(),
+            "unfused_hbm_bytes": unfused.modeled_hbm_bytes(),
+            "predicted_ms": plan.predicted_time(overlap=False) * 1e3,
+            "unfused_predicted_ms":
+                unfused.predicted_time(overlap=False) * 1e3}
+        rows.append(entry(
+            f"I sched B: plan {name}, {plan.n_parts} parts",
+            plan.n_parts, err, timed,
+            time_ms(lambda: plan(x, b, *sc, mode="interpret"), reps=5),
+            (2 + n_out) * 4 * N_SCHED_PLAN, plan.graph.flops(N_SCHED_PLAN),
+            None,
+            launches_counted_in="phase I's scheduler run",
+            unfused_ms=unf[0]))
+    del x, b
+    mark("B's rows")
+
+    # host overhead: the same mix at N = 2^12, wall per batch less device
+    small = make_inputs(SEED + 13, [N_HOST] * (2 * N_SCHED_ITEMS + 2), dev)
+    sx, sb = small[:N_SCHED_ITEMS], small[N_SCHED_ITEMS:-2]
+    px, pb = small[-2:]
+    small_plans = sched_plans(N_HOST)
+    walls: dict = {}
+    for _ in range(HOST_REPS):
+        rep3, a3, b3 = phase_i(sx, sb, px, pb, small_plans, "auto",
+                               cost=shared)
+        kinds = {a3[0].seq: "A", b3[0].seq: "B axpby_residual",
+                 b3[1].seq: "B saxpby"}
+        for row in batch_table(rep3, kinds):
+            walls.setdefault(row["batch"], []).append(row["observed_ms"])
+    sreqs = [(SCALE, xa, ba) for xa, ba in zip(sx, sb)]
+    device = {"A": time_ms(lambda: fused.program.call_batch(sreqs))[0],
+              "B axpby_residual": time_ms(lambda: small_plans[0](
+                  px, pb, PLAN_S, PLAN_T, mode="kernel"))[0],
+              "B saxpby": time_ms(lambda: small_plans[1](
+                  px, pb, SAX_A, SAX_B, mode="kernel"))[0]}
+    host = {k: {"wall_ms_median": float(np.median(v)),
+                "device_ms": device[k],
+                "host_us": (float(np.median(v)) - device[k]) * 1e3}
+            for k, v in walls.items()}
+    del small, sx, sb, px, pb
+
+    # H100_HBM.overhead_s by least squares: c0_copy device s against
+    # bytes, t = overhead_s + bytes / peak_bw, over the sizes that fill
+    # whole 8 × 1024 tiles (a smaller copy also launches a pad kernel,
+    # core/stream.py flatten_to_blocks; its times are kept beside)
+    tile = stream_copy.COPY.block_rows * stream_copy.COPY.block_cols
+    times = {}
+    for n in FIT_NS:
+        (xf,) = make_inputs(SEED + 14, [n], dev)
+        times[n] = time_ms(lambda: ops.stream_copy(xf, mode="kernel"))[0]
+    whole = [n for n in FIT_NS if n % tile == 0]
+    A = np.array([[1.0, 8.0 * n] for n in whole])
+    t_s = np.array([times[n] * 1e-3 for n in whole])
+    (c0, c1), *_ = np.linalg.lstsq(A, t_s, rcond=None)
+    fit = {"n": whole, "bytes": [8 * n for n in whole],
+           "device_s": t_s.tolist(), "overhead_s": float(c0),
+           "peak_bw_bytes_per_s": float(1 / c1) if c1 > 0 else None,
+           "max_rel_residual": float(np.max(np.abs(A @ [c0, c1] - t_s)
+                                            / t_s)),
+           "assumed_overhead_s": H100.dram.overhead_s,
+           "padded_n_device_s": {str(n): times[n] * 1e-3 for n in FIT_NS
+                                 if n % tile}}
+
+    summary = {"phase": "I", "card": CARD, "policy": "wfq", "n_lanes": 2,
+               "clock": "wall", "hierarchy": H100.name,
+               "partition_s": partition_s, "cold_run_s": cold_run_s,
+               "warm_run_s": warm_run_s, "launches": launches,
+               "device_kernels": kernels, "batches": drift,
+               "fusion": fusion, "host_per_dispatch_at_n": N_HOST,
+               "host_per_dispatch": host, "overhead_fit": fit,
+               "replay": replay_ok, "peak_bytes_after": marks,
+               "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    print(json.dumps({"sched": summary}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -1407,6 +1755,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    global CARD
+    CARD = smi
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     check, rows = Check(), []
@@ -1420,7 +1770,8 @@ def main() -> int:
     for name, phase in (("A", run_phase_a), ("B", run_phase_b),
                         ("C", run_phase_c), ("D", run_phase_d),
                         ("E", run_phase_e), ("F", run_phase_f),
-                        ("G", run_phase_g), ("H", run_phase_h)):
+                        ("G", run_phase_g), ("H", run_phase_h),
+                        ("I", run_phase_i)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

@@ -53,10 +53,11 @@ Serving entry points: :meth:`Program.call_batch` coalesces N
 same-structure requests into ONE launch, and observed-time hooks
 (:func:`push_observed_time_hook`) report measured wall seconds per call.
 
-A :class:`Program` scores candidate geometries with a
-:class:`~repro_torch.core.burst_model.BurstModel` only: the trace-driven
-memory-hierarchy models of the JAX package are not ported yet, and a
-Program given one raises ``NotImplementedError``.
+A :class:`Program` scores candidate geometries with the one-term
+:class:`~repro_torch.core.burst_model.BurstModel` law, or, given a
+:class:`~repro_torch.memhier.hierarchy.Hierarchy`, by simulating each
+candidate's trace (:func:`repro_torch.memhier.predict.predict_program`,
+intermediates elided, through the fast engine).
 """
 from __future__ import annotations
 
@@ -409,7 +410,8 @@ class Program:
     ----------
     stages: the per-instruction Stages, in dataflow order.
     name:   display name ("c0_scale+c0_add").
-    model:  :class:`BurstModel` used to negotiate the fused block size.
+    model:  :class:`BurstModel` or memhier ``Hierarchy`` used to
+            negotiate the fused block size.
     smem_budget: on-chip bytes one thread block may pin for its resident
             operand tiles (the paper's BRAM capacity).
     n_buffers: pipelining depth of the tile loads; each resident operand
@@ -526,15 +528,23 @@ class Program:
         """
         return self._negotiate_scored(n_elems, dtype)[:3]
 
+    def negotiated_time(self, n_elems: int, dtype) -> float:
+        """Modeled seconds of one launch at the negotiated geometry —
+        the scheduling runtime's model seed (:mod:`repro_torch.sched.
+        cost`). Shares the negotiation memo."""
+        return self._negotiate_scored(n_elems, dtype)[3]
+
     def _score_geometry(self, n_elems: int, dtype, block_rows: int,
                         block_cols: int) -> float:
-        """Modeled seconds of ONE candidate geometry at ``n_elems``."""
+        """Modeled seconds of ONE candidate geometry at ``n_elems``:
+        the burst law, or the hierarchy simulation of the candidate."""
         if not isinstance(self.model, BurstModel):
-            raise NotImplementedError(
-                f"{self.name}: geometry negotiation under "
-                f"{type(self.model).__name__} needs the memory-hierarchy "
-                f"simulator, which is not ported yet; use a BurstModel "
-                f"(e.g. H100_HBM)")
+            # deferred: memhier imports core.stream
+            from repro_torch.memhier.predict import predict_program
+            return predict_program(self.model, self, n_elems, dtype,
+                                   block_rows=block_rows,
+                                   block_cols=block_cols,
+                                   n_buffers=self.n_buffers).time_s
         bits = _bits(dtype)
         block_elems = block_rows * block_cols
         n_io = self.n_ext_vec_in + self.n_vec_out

@@ -112,6 +112,21 @@ class StreamConfig:
                 f"{self.block_bits // 8} B) > budget {budget} B — shrink "
                 f"block_bits (the paper hit the same wall with BRAM, §3.1.3)")
 
+    # -- hierarchy-derived defaults (paper §3.1 knob mapping) ---------------
+    @classmethod
+    def from_hierarchy(cls, hier, n_buffers: int = 2) -> "StreamConfig":
+        """Derive the default geometry from a :class:`repro_torch.memhier.
+        hierarchy.Hierarchy`: VLEN from the first level's block (DL1
+        block = VLEN, §3.1.1) and the streamed block from the LLC block
+        (one block = one burst, §3.1.2), both rounded up to the column
+        and sub-block granularity so the result satisfies
+        ``__post_init__``.
+        """
+        vlen_bits = round_up(hier.levels[0].block_bytes * 8, LANES * 8)
+        block_bits = round_up(hier.llc.block_bytes * 8, vlen_bits)
+        return cls(vlen_bits=vlen_bits, block_bits=block_bits,
+                   n_buffers=n_buffers)
+
 
 def round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult

@@ -285,6 +285,54 @@ def stream_triad(a, b, s, mode=None):
 
 
 # ---------------------------------------------------------------------------
+# c0 DAG pipelines — branching/shared-input dataflow graphs over the
+# streaming family, the shapes the repro_torch.graph partitioner explores.
+# Linear chains stay on Registry.fuse.
+# ---------------------------------------------------------------------------
+
+C0_PIPELINES = ("axpby_residual", "saxpby", "diamond")
+
+
+def c0_pipeline_graph(kind: str = "axpby_residual"):
+    """Build a named DAG-shaped c0 pipeline as a :class:`repro_torch.graph.
+    ir.Graph` (branching, shared inputs and fan-out — not just chains).
+
+    axpby_residual: out1 = copy(add(scale(x, s), b)), out2 = triad(x, b, t)
+                    — a fusable 3-chain next to a branch sharing both
+                    inputs.
+    saxpby:         out = add(scale(x, a), scale(y, b)) — two chains
+                    joining at an add; only one can absorb the join.
+    diamond:        a = scale(x, s); out = add(copy(a), a) — fan-out on a,
+                    so a must materialise and cannot be elided.
+    """
+    from repro_torch.graph.ir import Graph   # deferred: graph imports the ISA
+    g = Graph(name=f"c0_{kind}")
+    if kind == "axpby_residual":
+        x, b = g.input("x"), g.input("b")
+        s, t = g.scalar("s"), g.scalar("t")
+        u = g.apply("c0_scale", x, s)
+        v = g.apply("c0_add", u, b)
+        g.output(g.apply("c0_copy", v))
+        g.output(g.apply("c0_triad", x, b, t))
+    elif kind == "saxpby":
+        x, y = g.input("x"), g.input("y")
+        a, b = g.scalar("a"), g.scalar("b")
+        u = g.apply("c0_scale", x, a)
+        v = g.apply("c0_scale", y, b)
+        g.output(g.apply("c0_add", u, v))
+    elif kind == "diamond":
+        x, s = g.input("x"), g.scalar("s")
+        a = g.apply("c0_scale", x, s)
+        c = g.apply("c0_copy", a)
+        g.output(g.apply("c0_add", c, a))
+    else:
+        raise ValueError(f"unknown c0 pipeline {kind!r}; "
+                         f"have {C0_PIPELINES}")
+    g.validate()
+    return g
+
+
+# ---------------------------------------------------------------------------
 # The mergesort application (paper §4.3.1): sort-in-chunks + pairwise merges.
 # ---------------------------------------------------------------------------
 

@@ -216,13 +216,22 @@ class TestGeometryArtifacts:
         assert not list(cache_dir.iterdir())
         assert delta(s0, "disk_hit", "disk_miss", "disk_store") == (0, 0, 0)
 
-    def test_hierarchy_models_not_ported_yet(self):
-        class Hierarchy:
-            def fingerprint(self):
-                return ("hier", "tiny")
-        with pytest.raises(NotImplementedError, match="not ported"):
-            two_stage_program(model=Hierarchy()).negotiate_geometry(
-                4096, F32)
+    def test_hierarchy_models_not_ported_yet(self, cache_dir):
+        # memhier is ported: a Hierarchy model negotiates by simulating
+        # each candidate and persists the verdict under the hierarchy's
+        # value fingerprint; a fresh process's view loads it back
+        from repro_torch.memhier import H100
+        s0 = snap()
+        br, bc, _ = two_stage_program(model=H100).negotiate_geometry(
+            4096, F32)
+        assert br == 8 and bc % 128 == 0
+        assert delta(s0, "geometry_misses", "disk_store") == (1, 1)
+        assert len(entries(cache_dir, "geom")) == 1
+        prog_mod.clear_dispatch_caches()
+        s1 = snap()
+        assert two_stage_program(model=H100).negotiate_geometry(
+            4096, F32)[:2] == (br, bc)
+        assert delta(s1, "geometry_misses", "disk_hit") == (0, 1)
 
 
 class TestActivation:
@@ -254,6 +263,8 @@ _CHILD = textwrap.dedent("""
     import dataclasses, json, sys
     import torch
     import repro_torch.kernels
+    import repro_torch.graph, repro_torch.memhier, repro_torch.obs
+    import repro_torch.regions, repro_torch.sched
     from repro_torch.core import isa
     from repro_torch.core import program as prog_mod
 

@@ -132,3 +132,144 @@ def test_dispatch_counters_exposed_under_reference_names():
     text = torch_metrics.REGISTRY.expose_text()
     for f in tprog._STAT_FIELDS:
         assert f"# TYPE repro_dispatch_{f}_total counter" in text
+
+
+# ---------------------------------------------------------------------------
+# drift (twins of tests/test_obs.py's drift cases)
+# ---------------------------------------------------------------------------
+
+def _drift_mods():
+    from repro.obs import drift as jax_drift
+    from repro_torch.obs import drift as torch_drift
+    return jax_drift, torch_drift
+
+
+def _tpu_v5e_as_port_hierarchy():
+    """The JAX package's TPU_V5E preset converted field by field (the
+    port carries no TPU preset)."""
+    import dataclasses
+
+    from repro.memhier import TPU_V5E
+    from repro_torch.core.burst_model import BurstModel
+    from repro_torch.memhier import (CacheLevel, ChannelModel, Hierarchy,
+                                     LastLevelCache)
+    levels = tuple(
+        (LastLevelCache if type(lv).__name__ == "LastLevelCache"
+         else CacheLevel)(**dataclasses.asdict(lv)) for lv in TPU_V5E.levels)
+    return TPU_V5E, Hierarchy(
+        TPU_V5E.name, levels,
+        BurstModel(TPU_V5E.dram.peak_bw, TPU_V5E.dram.overhead_s),
+        ChannelModel(**dataclasses.asdict(TPU_V5E.channels)))
+
+
+def _drift_records(mod, threshold=None):
+    t = mod.DriftTracker(threshold=threshold)
+    assert t.record("k1", 1e-3, 3e-3, name="worst") == 3.0
+    t.record("k1", 1e-3, 3e-3)
+    t.record("k2", 1e-3, 1.2e-3, name="mild", bucket=4096, dtype="float32")
+    assert t.record("k3", 0.0, 1.0) is None            # unusable pair
+    t.record(("prog", ("c0_scale", 1), 8192, "float32"), 2e-6, 1e-6,
+             name="fast", ewma_ratio=0.5)
+    return t
+
+
+@pytest.mark.parametrize("view", ["report", "format_report", "min2"])
+def test_drift_report_equal(view):
+    jax_drift, torch_drift = _drift_mods()
+    j, t = _drift_records(jax_drift), _drift_records(torch_drift)
+    if view == "report":
+        assert t.report() == j.report()
+        assert [r["name"] for r in t.report()] == ["worst", "fast", "mild"]
+    elif view == "format_report":
+        assert t.format_report() == j.format_report()
+    else:
+        assert t.report(min_samples=2) == j.report(min_samples=2)
+
+
+def test_drift_overflow_and_threshold():
+    _, torch_drift = _drift_mods()
+    t = torch_drift.DriftTracker(max_cells=1)
+    t.record("a", 1.0, 1.0)
+    assert t.record("b", 1.0, 1.0) is None
+    assert t.overflow == 1 and len(t) == 1
+    counter = torch_metrics.REGISTRY.counter("repro_drift_exceeded_total")
+    base = counter.value
+    t = torch_drift.DriftTracker(threshold=0.5)
+    t.record("k", 1.0, 10.0)                 # one outlier: not chronic
+    assert counter.value == base
+    t.record("k", 1.0, 10.0)
+    assert counter.value == base + 1 and t.cell_exceeds("k")
+    for _ in range(3):
+        t.record("fine", 1.0, 1.1, name="fine")
+    assert [r["name"] for r in t.exceeding(threshold=0.05)][-1] == "fine"
+    with pytest.raises(ValueError):
+        torch_drift.DriftTracker().exceeding()
+    with pytest.raises(ValueError):
+        torch_drift.DriftTracker(threshold=0.0)
+
+
+def test_cost_model_drift_equal():
+    """Both packages' CostModel under the same hierarchy values, fed the
+    same observations: identical drift rows (fingerprints included)."""
+    import repro.kernels  # noqa: F401
+    import repro_torch.kernels  # noqa: F401
+    from repro.core import isa as jisa
+    from repro.sched import CostModel as JCost
+    from repro_torch.core import isa as tisa
+    from repro_torch.sched import CostModel as TCost
+    jh, th = _tpu_v5e_as_port_hierarchy()
+    rows = []
+    for cost, isa_mod, f32 in ((JCost(hierarchy=jh), jisa, "float32"),
+                               (TCost(hierarchy=th), tisa, torch.float32)):
+        fused = isa_mod.fuse("c0_scale", "c0_add")
+        est = cost.estimate(fused, n_elems=5000, dtype=f32)
+        for _ in range(3):
+            cost.observe(fused, n_elems=5000, dtype=f32,
+                         seconds=2.0 * est.modeled_s)
+        rows.append(cost.drift_report(min_samples=1))
+    assert rows[1] == rows[0]
+    (cell,) = rows[1]
+    assert cell["samples"] == 3 and cell["drift"] == pytest.approx(1.0)
+    assert cell["dtype"] == "float32" and cell["ewma_ratio"] == 2.0
+
+
+def test_watch_programs_bare_calls():
+    import repro_torch.kernels  # noqa: F401
+    from repro_torch.core import isa as tisa
+    _, torch_drift = _drift_mods()
+    t = torch_drift.DriftTracker()
+    fused = tisa.fuse("c0_scale", "c0_add")
+    rng = np.random.default_rng(0)
+    x, b = (torch.from_numpy(rng.standard_normal(5000, dtype=np.float32))
+            for _ in range(2))
+    with torch_drift.watch_programs(t):
+        fused(2.0, x, b, mode="interpret")
+    (cell,) = t.report(min_samples=1)
+    assert cell["samples"] == 1 and cell["mean_ratio"] > 0
+    assert cell["name"] == "c0_scale+c0_add" and cell["bucket"] == 8192
+
+
+@pytest.mark.parametrize("threshold", [0.4, None])
+def test_chronic_drift_renegotiates_next_dispatch(threshold):
+    import repro_torch.kernels  # noqa: F401
+    from repro_torch.core import isa as tisa
+    from repro_torch.core import program as tprog
+    from repro_torch.sched import CostModel
+    _, th = _tpu_v5e_as_port_hierarchy()
+    tprog.clear_dispatch_caches()
+    cost = CostModel(hierarchy=th, drift_threshold=threshold)
+    fused = tisa.fuse("c0_scale", "c0_add")
+    rng = np.random.default_rng(1)
+    ops = (2.0,) + tuple(torch.from_numpy(rng.standard_normal(
+        5000, dtype=np.float32)) for _ in range(2))
+    fused(*ops, mode="interpret")                # warm geometry memo
+    base = tprog.DISPATCH_STATS.drift_renegotiated
+    est = cost.estimate(fused, n_elems=5000, dtype=torch.float32)
+    for _ in range(2):                           # chronic, not one-off
+        cost.observe(fused, n_elems=5000, dtype=torch.float32,
+                     seconds=est.modeled_s * 10)
+    fused(*ops, mode="interpret")
+    fused(*ops, mode="interpret")                # the flag is consumed
+    want = 1 if threshold is not None else 0
+    assert tprog.DISPATCH_STATS.drift_renegotiated == base + want
+    assert bool(cost.drift.exceeding(threshold=0.4)) is True
