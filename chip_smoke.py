@@ -8,10 +8,13 @@ registered instructions, fused chains and the coalesced batch path, all
 launching the generated Triton kernel K1; the paper's two applications
 (§4.3), which launch the sorting networks K5/K6 (CUDA C++) and the
 look-back scan K3 (CUDA C++); the Mamba2 SSD state scan, which launches
-K4 (Triton) — at full size (every array ≥ 4× the 50 MB L2: 2²⁶ 4-byte
-elements = 256 MiB); and the LM server at Kimi-K2's published widths,
-whose MoE router launches K7 (top-k, CUDA C++) and K3 and whose prefill
-attention launches K8 (CUDA C++, wgmma and TMA in bfloat16). It builds
+K4 (Gluon, Triton's dialect with explicit layouts) — at full size (every array
+≥ 4× the 50 MB L2: 2²⁶ 4-byte elements = 256 MiB); the LM server at
+Kimi-K2's published widths, whose MoE router launches K7 (top-k, CUDA
+C++) and K3 and whose prefill attention launches K8 (CUDA C++, wgmma and
+TMA in bfloat16); and the server on Mamba2-1.3B and Hymba-1.5B, every
+layer at every published width, whose prefill launches K4 once a layer
+(and, for Mamba2, the scheduled decode with SLO shedding). It builds
 every kernel from the checkout's sources (the CUDA sources first, one
 nvcc each, in parallel, with ptxas's register and shared-memory report),
 holds each against its plain PyTorch version and the torch oracles on
@@ -20,7 +23,7 @@ held busy, so the time is device time; and host wall time per call),
 and prints one ``kernels`` JSON line and, last, the device JSON line.
 Phase I serves two tenants through the scheduler, whose batches and plan
 parts launch K1, and prints a ``sched`` JSON line before the kernels
-line.
+line; phases H, J and K each print a ``serve`` JSON line.
 Exits non-zero, printing no result, when no CUDA device is visible or
 any phase fails.
 
@@ -49,7 +52,10 @@ Phases (inputs from numpy with a fixed seed):
      (src/repro/configs/mamba2_1p3b.py: headdim 64, state 128, d_inner
      4096 → 64 heads), batch 4, seq 8192 at chunk 256 → 32 chunks:
      ops.chunk_scan_state(a, states, axis=1), states (4, 32, 64, 64, 128)
-     float32 — one K4 launch
+     float32 — one launch of K4's state-scan entry on the states where
+     they lie; the former path (K4 on the decay broadcast to state rank
+     and both moved, 2 × 256 MiB of copies) is run beside it and timed
+     as "was"
   H  the LM server (repro_torch.launch.serve.generate) on Kimi-K2 1T-A32B
      (src/repro/configs/kimi_k2_1t.py) at every published width — d_model
      7168, 64 heads, 8 KV heads of 128, 384 experts top-8 of width 2048,
@@ -85,6 +91,24 @@ Phases (inputs from numpy with a fixed seed):
      batch) for the same mix at 2¹², and a least-squares fit of
      t = overhead_s + bytes / peak_bw to c0_copy's device time at
      2¹⁰…2¹⁸ (H100_HBM.overhead_s is assumed, 1 µs)
+  J  the LM server (serve.generate) on Mamba2-1.3B
+     (src/repro/configs/mamba2_1p3b.py) at every published width and all
+     48 layers — d_model 2048, d_inner 4096, 64 heads of 64, state 128,
+     chunk 256, vocab 50280, bf16 — random weights from a seeded CUDA
+     generator; 4 prompts of 8192 tokens (each layer's state scan is G's
+     (4, 32, 64, 64, 128)), 16 greedy tokens: K4 48 times in prefill and
+     never in a decode step, each call held as it runs against float64
+     of its own inputs (nothing stored). Then serve.main with --sched
+     --slo-shed --obs-tail --obs-trace at 4 × 256 tokens and a generous
+     --slo-ms: its tokens equal the unscheduled server's at the same
+     seed, it sheds nothing, and prints its sched, SLO and blame reports
+  K  the same on Hymba-1.5B (src/repro/configs/hymba_1p5b.py), all 32
+     layers at every published width — d_model 1600, 25 heads and 5 KV
+     heads of 64, d_ff 5504, 64 SSM heads of 50, state 16, SWA window
+     1024, vocab 32001 — 4 prompts of 2048 tokens (twice the window: the
+     rolled SWA cache), 16 greedy tokens: K4 32 times in prefill; the
+     sliding-window attention takes the chunked path, as in the reference
+     (no K8)
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -150,11 +174,24 @@ Tolerances (fixed before any run):
     ulp;
   * H: every prefill and decode logit finite, the greedy tokens of two
     runs on the same inputs bit-identical, the launch counts above;
+  * G: the in-place call bit-identical to K4 on the materialised operands
+    (both entries scan each row in one stated register layout,
+    ``prefix_scan.scan_layout``, so in one order); it and the plain
+    version each within the float64 bound above, and |K4 − plain| within
+    the same bound. J, K: each prefill K4 call within the same bound on
+    its own inputs (a weak hold: under the reference's init every
+    chunk's decay is 0 in float32, so y = b there); so, at the path's
+    shape on G's kind of random decays in (0, 1], the same three holds
+    as G's and bit-identity to the materialised path; logits finite, two
+    greedy runs bit-identical, the launch counts above, J's scheduled
+    tokens equal to its unscheduled ones with nothing shed;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
     (padding the one-row operand to 8 rows would pass it), for H the
-    weights' bytes + 8 GB, and 3 GB for I (≈ 0.8 GB for A's requests,
-    ≈ 1.6 GB for B's inputs and outputs).
+    weights' bytes + 8 GB, 3 GB for I (≈ 0.8 GB for A's requests,
+    ≈ 1.6 GB for B's inputs and outputs), and for J and K the weights'
+    bytes plus a count of one layer's largest intermediates
+    (``ssm_peak_limit``: 14.5 GB for J, 8.4 GB for K).
 
 Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
 operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
@@ -245,6 +282,11 @@ HOST_REPS = 10                     # phase I: runs of that mix
 FIT_NS = tuple(1 << k for k in range(10, 19))   # phase I: c0_copy sizes
 PLAN_S, PLAN_T = 1.5, 0.5          # axpby_residual's scalars
 SAX_A, SAX_B = 2.0, -0.75          # saxpby's scalars
+SSM_SERVES = {   # phase: (arch, batch, prompt length, greedy tokens)
+    "J": ("mamba2_1p3b", 4, 8192, 16),
+    "K": ("hymba_1p5b", 4, 2048, 16),
+}
+SCHED_PROMPT, SCHED_SLO_MS = 256, 1000.0   # phase J's scheduled run
 LM_REDUCED = ["n_layers 61 → 2: two layers of bf16 weights are 67.9 GiB "
               "on one 80 GB card",
               "attn_impl chunked → kernel: the switch under which prefill "
@@ -262,9 +304,28 @@ def weight_bytes(cfg) -> int:
                for _, s in tree_items(param_specs(cfg)))
 
 
+def ssm_peak_limit(cfg, batch: int, seq: int) -> float:
+    """Phase J/K's device-memory limit, counted from the weights and the
+    largest intermediates of one layer's prefill: three of the SSD's
+    (B, C, Q, Q, H) float32 intra-chunk tensors (the tensor, its
+    contiguous copy for the product, one spare), ten float32 (B, S,
+    d_inner) activations (x, z, their casts, the chunk views and the
+    copy for the product, y_intra, y_inter, y, the inter-chunk term),
+    and, with attention, three (B, KV, G, chunk, S) float32 logit tensors
+    of the chunked path (logits, softmax, the cast weights)."""
+    q = min(cfg.ssm_chunk, seq)
+    quad = batch * seq * q * cfg.ssm_heads * 4
+    act = batch * seq * cfg.d_inner * 4
+    attn = (batch * cfg.n_heads * min(cfg.attn_chunk, seq) * seq * 4
+            if cfg.has_attention else 0)
+    return weight_bytes(cfg) + 3 * quad + 10 * act + 3 * attn
+
+
 PEAK_MEM_LIMIT = {"A": 3e9, "B": 3e9, "C": 3e9, "D": 3e9,
                   "E": 6e9, "F": 4e9, "G": 4e9,
-                  "H": weight_bytes(lm_config()) + 8e9, "I": 3e9}
+                  "H": weight_bytes(lm_config()) + 8e9, "I": 3e9,
+                  **{ph: ssm_peak_limit(get_config(arch), b, p)
+                     for ph, (arch, b, p, _) in SSM_SERVES.items()}}
 KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
     "K1": ("triton", "src/repro_torch/core/fused_kernel.py",
            "src/repro/core/program.py:914"),
@@ -412,7 +473,8 @@ def serve_prompts(seed: int, cfg, batch: int, prompt_len: int, device):
 
 def phase_h(cfg, params, prompts, gen: int, mode):
     """The LM server (launch/serve.py): prefill, cache growth, greedy
-    decode. Returns (tokens (B, gen), prefill s, decode s)."""
+    decode; phases H, J and K. Returns (tokens (B, gen), prefill s,
+    decode s)."""
     with isa.use(mode):
         return serve.generate(cfg, params, prompts, gen)
 
@@ -594,23 +656,48 @@ def prefix_bound_misses(got, ref64, abs64, bc: int, k_abs: int,
     return bad, worst
 
 
-def statescan_bound_misses(got, a, states, bc: int,
-                           extra: int = 2) -> tuple[int, float]:
-    """The same bound for the state scan along axis 1, against a float64
-    sequential recurrence y_c = a_c·y_{c-1} + b_c."""
+def statescan_f64(a, states, bc: int, extra: int = 2):
+    """For each chunk c along axis 1: (c, the float64 sequential recurrence
+    y_c = a_c·y_{c-1} + b_c, its bound (⌈log2 bc⌉ + ⌈(c+1)/bc⌉ + extra)·
+    eps32·Σ_{j≤c}|b_j|)."""
     lg = math.ceil(math.log2(bc))
     y = torch.zeros_like(states[:, 0], dtype=torch.float64)
     s = torch.zeros_like(y)
-    bad, worst = 0, 0.0
     for c in range(states.shape[1]):
         b = states[:, c].double()
         y = a[:, c, :, None, None].double() * y + b
         s = s + b.abs()
+        yield c, y, (lg + math.ceil((c + 1) / bc) + extra) * EPS * s
+
+
+def statescan_bound_misses(got, a, states, bc: int,
+                           extra: int = 2) -> tuple[int, float]:
+    """The same bound for the state scan along axis 1, against a float64
+    sequential recurrence y_c = a_c·y_{c-1} + b_c."""
+    bad, worst = 0, 0.0
+    for c, y, bound in statescan_f64(a, states, bc, extra):
         err = (got[:, c].double() - y).abs()
-        k = lg + math.ceil((c + 1) / bc) + extra
-        bad += int((err > k * EPS * s).sum())
+        bad += int((err > bound).sum())
         worst = max(worst, float(err.max()))
     return bad, worst
+
+
+def hold_statescan(check, what, got, plain, a, states, bc: int) -> float:
+    """The kernel's ``got`` and the plain version's ``plain`` each within
+    the state scan's float64 bound, and |got − plain| within that same
+    bound, element by element; returns the kernel's max |Δ| to float64."""
+    bad = {"K4": 0, "plain": 0, "|K4 - plain|": 0}
+    worst = 0.0
+    for c, y, bound in statescan_f64(a, states, bc):
+        g, p = got[:, c].double(), plain[:, c].double()
+        for key, err in (("K4", (g - y).abs()), ("plain", (p - y).abs()),
+                         ("|K4 - plain|", (g - p).abs())):
+            bad[key] += int((err > bound).sum())
+        worst = max(worst, float((g - y).abs().max()))
+    for key, n in bad.items():
+        check.true(f"{what} {key}: {n} elements outside the summation "
+                   f"bound", n == 0)
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1041,13 +1128,15 @@ def run_phase_e(dev, check, rows):
 APP_KINDS = (("K5", "k5_sort"), ("K6", "k6_merge"), ("cat", "CatArray"),
              ("torch.sort", "sort"))   # kind: what its kernels' names hold
 LM_KINDS = (("K8", "k8_flash"), ("K7", "k7_topk"), ("K3", "k3_"),
+            ("K4", "k4_"),
             ("matmul", "gemm"), ("matmul", "nvjet"), ("matmul", "xmma"),
             ("matmul", "cutlass"), ("index", "index"),
             ("cat", "CatArray"), ("elementwise", "elementwise"),
             ("reduce", "reduce"))
 
 
-def device_events(fn) -> list[tuple[str, float]] | None:
+def device_events(fn, wall: list | None = None
+                  ) -> list[tuple[str, float]] | None:
     """(name, device ms) of each device event (kernels, copies, fills) of
     one call of ``fn`` in a ``torch.profiler`` trace; None when the
     profiler sees no device time. The trace runs a warm-up call first and
@@ -1057,7 +1146,10 @@ def device_events(fn) -> list[tuple[str, float]] | None:
     result: a trace of a few microseconds of device work came back empty
     on the H100 (the router's top-k, and a cat of the same size, once
     phase E's app trace had run), and the same work inside ~10 ms of
-    spinning comes back whole."""
+    spinning comes back whole. With ``wall``, the leading spin is waited
+    out before the call, and the kept call's host-clock ms, from its
+    first enqueue to the device's end, is appended to it: the wall of
+    the traced run itself (the profiler's host overhead included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     events = []
@@ -1074,10 +1166,18 @@ def device_events(fn) -> list[tuple[str, float]] | None:
                  on_trace_ready=keep) as prof:
         for _ in range(2):
             torch.cuda._sleep(SPIN_CYCLES)
+            if wall is not None:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
             fn()
+            if wall is not None:
+                torch.cuda.synchronize()
+                took = (time.perf_counter() - t0) * 1e3
             torch.cuda._sleep(SPIN_CYCLES)
             torch.cuda.synchronize()
             prof.step()
+    if wall is not None:
+        wall.append(took)
     if not any(ms for _, ms in events):
         print("torch.profiler saw no device time: breakdown not measured",
               file=sys.stderr)
@@ -1100,8 +1200,22 @@ def device_ms_by_kind(fn, kinds) -> dict | None:
     first kind that matches wins; the rest is "other"); None when the
     profiler sees no device time."""
     events = device_events(fn)
-    if events is None:
-        return None
+    return None if events is None else ms_by_kind(events, kinds)
+
+
+def top_events(events, n: int = 10, width: int = 160) -> list:
+    """The ``n`` event names with the most device ms, each name cut to
+    ``width`` characters: [[name, ms, count], ...]."""
+    total: dict = {}
+    for name, t in events:
+        ms, k = total.get(name, (0.0, 0))
+        total[name] = (ms + t, k + 1)
+    return [[name[:width], ms, k] for name, (ms, k) in
+            sorted(total.items(), key=lambda it: -it[1][0])[:n]]
+
+
+def ms_by_kind(events, kinds) -> dict:
+    """:func:`device_ms_by_kind` of recorded events."""
     ms = {kind: 0.0 for kind, _ in kinds} | {"other": 0.0}
     for name, t in events:
         kind = next((k for k, word in kinds if word.lower() in name.lower()),
@@ -1145,6 +1259,25 @@ def run_phase_f(dev, check, rows):
         rel_err_vs_cumsum=rel))
 
 
+def materialised(a, states):
+    """The operands K4 took on the c4_statescan path before its state-scan
+    entry: the decay broadcast to state rank and both moved so the chunks
+    are the last axis, as (rows, chunks) copies."""
+    chunks = states.shape[1]
+    return (torch.movedim(a[..., None, None].expand(states.shape), 1,
+                          -1).reshape(-1, chunks),
+            torch.movedim(states, 1, -1).reshape(-1, chunks))
+
+
+def former_statescan(a, states):
+    """The whole former c4_statescan kernel call: the copies, K4 on them,
+    and the result moved back."""
+    ab, bb = materialised(a, states)
+    out = ps.chunk_scan_kernel(ab, bb).reshape(
+        torch.movedim(states, 1, -1).shape)
+    return torch.movedim(out, -1, 1)
+
+
 def run_phase_g(dev, check, rows):
     a, states = ssd_inputs(SEED + 7, SSD_SHAPE, SSD_STATE, dev)
     K4.launches = 0
@@ -1155,28 +1288,33 @@ def run_phase_g(dev, check, rows):
     plain = phase_g(a, states, "interpret")
     chunks = SSD_SHAPE[1]
     br, bc = ps.block_shape(states.numel() // chunks, chunks)
-    bad, worst = statescan_bound_misses(got, a, states, bc)
-    check.true(f"G K4: {bad} elements outside the summation bound", bad == 0)
-    bad_p, _ = statescan_bound_misses(plain, a, states, bc)
-    check.true(f"G plain: {bad_p} elements outside the summation bound",
-               bad_p == 0)
+    worst = hold_statescan(check, "G", got, plain, a, states, bc)
     err = max_abs(got, plain)
-    del got, plain
+    del plain
+    # the former path (K4 on the broadcast, moved copies) gives the same
+    # bits: the entry scans each row in K4's own layout and order
+    was = former_statescan(a, states)
+    same = torch.equal(got, was)
+    check.true("G: the in-place call is not bit-identical to K4 on the "
+               "materialised operands", same)
+    del got, was
     call = time_ms(lambda: phase_g(a, states, "kernel"))
-    # the K4 launch alone, on the operands the wrapper builds (the decay
-    # broadcast to state rank and both moved to the last axis)
-    ab = torch.movedim(a[..., None, None].expand(states.shape), 1,
-                       -1).reshape(-1, chunks)
-    bb = torch.movedim(states, 1, -1).reshape(-1, chunks)
+    was_call = time_ms(lambda: former_statescan(a, states))
+    ab, bb = materialised(a, states)
+    was_k4 = time_ms(lambda: ps.chunk_scan_kernel(ab, bb))
+    del ab, bb
     n = states.numel()
     rows.append(entry(
-        "G chunk_scan_state (4,32,64,64,128) float32", launches, err,
-        time_ms(lambda: ps.chunk_scan_kernel(ab, bb)),
-        time_ms(lambda: ps.chunk_scan_kernel(ab, bb, interpret=True),
-                reps=5),
-        12 * n, 2 * n, None, kernel="K4", block=[br, bc],
-        max_abs_err_f64=worst, call_ms=call[0], call_wall_ms=call[1],
-        call_bytes=8 * n, call_bound_ms=bound_ms(8 * n, 2 * n)[0]))
+        "G chunk_scan_state (4,32,64,64,128) float32 in place", launches,
+        err, time_ms(lambda: K4.state_scan(a, states, 1)),
+        time_ms(lambda: phase_g(a, states, "interpret"), reps=5),
+        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
+        max_abs_err_f64=worst, scan_layout=ps.scan_layout(
+            br, bc, ps._num_warps(br, bc)),
+        call_ms=call[0], call_wall_ms=call[1],
+        bit_identical_to_was=same, was_call_ms=was_call[0],
+        was_call_wall_ms=was_call[1], was_k4_ms=was_k4[0],
+        was_k4_bytes=12 * n, was_k4_bound_ms=bound_ms(12 * n, 2 * n)[0]))
 
 
 def hold_attention(check, what, q, k, v, out, plain=None):
@@ -1343,39 +1481,14 @@ def run_phase_h(dev, check, rows):
     print(f"H plain path (not gated): {json.dumps(plain_path)}", flush=True)
     del p7, psamp, plain_tokens
 
-    # serving times: wall from generate, device from CUDA events
-    pre = time_ms(lambda: M.prefill(cfg, params, {"tokens": prompts}),
-                  reps=3, warmup=1)
-    lg, cache = M.prefill(cfg, params, {"tokens": prompts})
-    cache = M.grow_cache(cfg, cache, LM_PROMPT, LM_PROMPT + LM_GEN)
-    tok = serve.sample(lg, None, 0.0)
-    dec = time_ms(lambda: M.decode_step(cfg, params, cache, tok, LM_PROMPT),
-                  reps=5, warmup=1)
-    by_kind = {
-        "prefill": device_ms_by_kind(
-            lambda: M.prefill(cfg, params, {"tokens": prompts}), LM_KINDS),
-        "decode_step": device_ms_by_kind(
-            lambda: M.decode_step(cfg, params, cache, tok, LM_PROMPT),
-            LM_KINDS)}
-    del lg, cache
     summary = {
         "phase": "H", "model": LM_ARCH, "reduced": LM_REDUCED,
         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
         "weight_bytes": weight_bytes(cfg), "init_s": init_s,
-        "prefill_wall_ms": prefill_s * 1e3,
-        "decode_wall_ms_per_token": decode_s / (LM_GEN - 1) * 1e3,
         "cold_prefill_wall_ms": cold_s[0] * 1e3,
         "cold_decode_wall_ms_per_token": cold_s[1] / (LM_GEN - 1) * 1e3,
-        "prefill_device_ms": pre[0], "decode_device_ms_per_token": dec[0],
-        "device_ms_by_kind": by_kind,
-        "device_idle_share": {
-            "prefill": None if by_kind["prefill"] is None else
-            1 - sum(by_kind["prefill"].values()) / (prefill_s * 1e3),
-            "decode": None if by_kind["decode_step"] is None else
-            1 - sum(by_kind["decode_step"].values())
-            / (decode_s / (LM_GEN - 1) * 1e3)},
-        "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
-        "decode_tokens_per_s": LM_BATCH * (LM_GEN - 1) / decode_s,
+        **serve_timings(cfg, params, prompts, LM_GEN,
+                        [(prefill_s, decode_s)]),
         "launches": launches, "plain_path": plain_path,
         "peak_bytes": torch.cuda.max_memory_allocated(dev)}
     print(json.dumps({"serve": summary}), flush=True)
@@ -1471,6 +1584,219 @@ def run_phase_h(dev, check, rows):
     k8_row["unit_scale_logits"].update(hold_f64(
         check, what, q, kk, vv, o8, plain8, noise=UNIT_SCALE_NOISE))
     del q, kk, vv, o8, plain8
+
+
+def serve_timings(cfg, params, prompts, gen: int, walls) -> dict:
+    """A server phase's numbers. Wall ms: the median of the readings, each
+    kept: ``serve.generate``'s runs ``walls`` = [(prefill s or None,
+    decode s), ...] and the mean of back-to-back calls (``time_ms``);
+    device ms from CUDA events; device ms by kernel kind of one prefill
+    and one decode step (one torch.profiler trace each), and each one's
+    idle share: 1 − the traced kernels' sum / the traced call's own
+    wall."""
+    batch, prompt_len = prompts.shape
+    pre = time_ms(lambda: M.prefill(cfg, params, {"tokens": prompts}),
+                  reps=3, warmup=1)
+    lg, cache = M.prefill(cfg, params, {"tokens": prompts})
+    cache = M.grow_cache(cfg, cache, prompt_len, prompt_len + gen)
+    tok = serve.sample(lg, None, 0.0)
+    dec = time_ms(lambda: M.decode_step(cfg, params, cache, tok, prompt_len),
+                  reps=5, warmup=1)
+    traced = {"prefill": [], "decode_step": []}
+    events = {
+        "prefill": device_events(
+            lambda: M.prefill(cfg, params, {"tokens": prompts}),
+            traced["prefill"]),
+        "decode_step": device_events(
+            lambda: M.decode_step(cfg, params, cache, tok, prompt_len),
+            traced["decode_step"])}
+    by_kind = {key: None if ev is None else ms_by_kind(ev, LM_KINDS)
+               for key, ev in events.items()}
+    # the traced kernels' sum: a decode step enqueues more launches than
+    # the launch queue holds, so the host blocks inside the spin that
+    # holds the device and the event pairs above time the host too
+    busy = {key: None if ms is None else sum(ms.values())
+            for key, ms in by_kind.items()}
+    del lg, cache
+    readings = {
+        "prefill": [p * 1e3 for p, _ in walls if p is not None] + [pre[1]],
+        "decode": [d / (gen - 1) * 1e3 for _, d in walls] + [dec[1]]}
+    prefill_ms = float(np.median(readings["prefill"]))
+    step_ms = float(np.median(readings["decode"]))
+    return {
+        "prefill_wall_ms": prefill_ms,
+        "decode_wall_ms_per_token": step_ms,
+        "wall_ms_readings": readings,
+        "prefill_device_ms": pre[0], "decode_device_ms_per_token": dec[0],
+        "device_ms_by_kind": by_kind,
+        "device_busy_ms": busy,
+        "traced_wall_ms": {key: w[0] if w else None
+                           for key, w in traced.items()},
+        "device_idle_share": {
+            key: None if busy[key] is None or not traced[key] else
+            1 - busy[key] / traced[key][0] for key in busy},
+        "top_kernels": {key: None if ev is None else top_events(ev)
+                        for key, ev in events.items()},
+        "prefill_tokens_per_s": batch * prompt_len / prefill_ms * 1e3,
+        "decode_tokens_per_s": batch / step_ms * 1e3}
+
+
+def scheduled_serve(arch: str, batch: int, prompt_len: int, gen: int,
+                    extra=(), seed: int = SEED):
+    """``serve.main`` on ``arch`` at full width on the card; returns (its
+    tokens, what it printed)."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    argv = ["--arch", arch.replace("_", "-"), "--batch", str(batch),
+            "--prompt-len", str(prompt_len), "--gen", str(gen),
+            "--seed", str(seed), *extra]
+    with contextlib.redirect_stdout(out):
+        tokens = serve.main(argv)
+    return tokens, out.getvalue()
+
+
+def run_phase_ssm(phase: str, dev, check, rows):
+    """Serve one SSM family at every published width and all its layers
+    (``SSM_SERVES[phase]``); each prefill K4 call held, as it runs,
+    against float64 of its own inputs."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    arch, batch, prompt_len, gen = SSM_SERVES[phase]
+    cfg = get_config(arch)
+    n_l = cfg.n_layers
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 20), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = serve_prompts(SEED + 21, cfg, batch, prompt_len, dev)
+    chunks = prompt_len // cfg.ssm_chunk
+    rows_k4 = batch * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state
+    bc = ps.block_shape(rows_k4, chunks)[1]
+
+    def hold(args, kw, out):           # K4's call checked as it runs
+        a, states, axis = args
+        bad, worst = statescan_bound_misses(out, a, states, bc)
+        return (tuple(states.shape), axis, bad, worst)
+
+    # the main path: the server, with its launches counted
+    with Tap(ps, "chunk_scan_state_kernel", hold) as t4, \
+            Tap(M, "prefill", lambda *c: K4.launches) as tpre, \
+            Tap(M, "decode_step", lambda *c: K4.launches) as tdec, \
+            Tap(serve, "sample") as ts:
+        K4.launches = K8.launches = K7.launches = K3.launches = 0
+        tokens, _, decode1_s = phase_h(cfg, params, prompts, gen, "auto")
+        launches = {"K4": K4.launches, "K8": K8.launches,
+                    "K7": K7.launches, "K3": K3.launches}
+    k4_calls = list(t4.calls)
+    logits = [args[0] for args, _, _ in ts.calls]
+    del t4, ts
+    check.true(f"{phase}: {launches} launches, want K4 {n_l} and no "
+               f"other kernel", launches == {"K4": n_l, "K8": 0, "K7": 0,
+                                             "K3": 0})
+    check.true(f"{phase}: K4 launches after prefill {tpre.calls}, want "
+               f"[{n_l}]", tpre.calls == [n_l])
+    check.true(f"{phase}: K4 launches after each decode step "
+               f"{sorted(set(tdec.calls))}, want {n_l} (none a step)",
+               len(tdec.calls) == gen - 1 and set(tdec.calls) == {n_l})
+    want_shape = (batch, chunks, cfg.ssm_heads, cfg.ssm_headdim,
+                  cfg.ssm_state)
+    for i, (shape, axis, bad, _) in enumerate(k4_calls):
+        check.true(f"{phase} K4 call {i}: states {shape} axis {axis}, "
+                   f"want {want_shape} axis 1",
+                   shape == want_shape and axis == 1)
+        check.true(f"{phase} K4 call {i}: {bad} elements outside the "
+                   f"summation bound", bad == 0)
+    check.true(f"{phase} tokens: {tuple(tokens.shape)}, want ({batch}, "
+               f"{gen}) ids below {cfg.vocab}",
+               tuple(tokens.shape) == (batch, gen)
+               and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    check.true(f"{phase}: {len(logits)} logits sampled, want {gen}",
+               len(logits) == gen)
+    for i, lg in enumerate(logits):
+        check.shaped(f"{phase} logits of step {i}", lg, (batch, cfg.vocab))
+    del logits
+    again, prefill_s, decode_s = phase_h(cfg, params, prompts, gen, "auto")
+    check.exact(f"{phase} greedy tokens, run 2 vs run 1", again, tokens)
+    summary = {"phase": phase, "card": CARD, "model": arch,
+               "reduced": [], "n_layers": n_l, "batch": batch,
+               "prompt_len": prompt_len, "gen": gen,
+               "weight_bytes": weight_bytes(cfg), "init_s": init_s,
+               "launches": launches,
+               "k4_max_abs_err_f64": max(w for *_, w in k4_calls),
+               # run 1's prefill ran under the float64 hold: not a reading
+               **serve_timings(cfg, params, prompts, gen,
+                               [(None, decode1_s), (prefill_s, decode_s)])}
+
+    # K4 at the path's shape on random decays in (0, 1]: the path's own
+    # decays are 0 in float32 (the reference's init), so there y = b and
+    # its hold above cannot see a wrong decay index or carry
+    a, states = ssd_inputs(SEED + 22, want_shape[:3], want_shape[3:], dev)
+    got = K4.state_scan(a, states, 1)
+    plain = ps.chunk_scan_state_kernel(a, states, 1, interpret=True)
+    worst = hold_statescan(check, f"{phase} K4 at the path's shape", got,
+                           plain, a, states, bc)
+    check.true(f"{phase} K4 at the path's shape: not bit-identical to K4 "
+               f"on the materialised operands",
+               torch.equal(got, former_statescan(a, states)))
+    n = states.numel()
+    rows.append(entry(
+        f"{phase} chunk_scan_state {want_shape} float32 in place "
+        f"({arch} prefill)", launches["K4"], max_abs(got, plain),
+        time_ms(lambda: K4.state_scan(a, states, 1)),
+        time_ms(lambda: ps.chunk_scan_state_kernel(a, states, 1,
+                                                   interpret=True), reps=5),
+        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4",
+        block=list(ps.block_shape(n // chunks, chunks)),
+        max_abs_err_f64=worst,
+        launches_counted_in=f"phase {phase}'s server run (prefill)"))
+    del a, states, got, plain
+
+    if phase == "J":
+        # the scheduled decode: the same tokens as the unscheduled server
+        # at the same seed, nothing shed, its reports printed
+        build = ROOT / "build" / "chip_smoke"
+        build.mkdir(parents=True, exist_ok=True)
+        paths = {k: str(build / f"{k}.json") for k in ("tail", "trace")}
+        del params
+        torch.cuda.empty_cache()
+        plain_tokens, _ = scheduled_serve(arch, batch, SCHED_PROMPT, gen)
+        K4.launches = 0
+        sched_tokens, text = scheduled_serve(
+            arch, batch, SCHED_PROMPT, gen,
+            ["--sched", "--slo-shed", "--slo-ms", str(SCHED_SLO_MS),
+             "--obs-tail", paths["tail"], "--obs-trace", paths["trace"]])
+        sched_launches = K4.launches
+        check.true(f"J scheduled: tokens {sched_tokens.shape} differ from "
+                   f"the unscheduled server's",
+                   np.array_equal(sched_tokens, plain_tokens))
+        check.true("J scheduled: a step was shed", "slo-shed:" not in text)
+        check.true(f"J scheduled: {sched_launches} K4 launches, want {n_l}",
+                   sched_launches == n_l)
+        reports = {k: [ln for ln in text.splitlines() if ln.startswith(k)]
+                   for k in ("sched[", "slo[", "blame[", "obs tail:",
+                             "obs trace")}
+        for k, lines in reports.items():
+            check.true(f"J scheduled: no '{k}' report printed", bool(lines))
+        print("J scheduled run:\n" + text, flush=True)
+        summary["scheduled"] = {"prompt_len": SCHED_PROMPT,
+                                "slo_ms": SCHED_SLO_MS,
+                                "tokens_equal_unscheduled": bool(
+                                    np.array_equal(sched_tokens,
+                                                   plain_tokens)),
+                                "k4_launches": sched_launches,
+                                "reports": reports}
+    summary["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    print(json.dumps({"serve": summary}), flush=True)
+
+
+def run_phase_j(dev, check, rows):
+    run_phase_ssm("J", dev, check, rows)
+
+
+def run_phase_k(dev, check, rows):
+    run_phase_ssm("K", dev, check, rows)
 
 
 def outputs(out) -> tuple:
@@ -1614,8 +1940,21 @@ def run_phase_i(dev, check, rows):
     # one trace of the whole run: one K1 kernel for A's batch and one per
     # plan part, and nothing else on the device but the small host-to-
     # device table copies
-    events = device_events(lambda: phase_i(xs, bs, x, b, plans, "auto",
-                                           cost=shared))
+    # (a trace that kept fewer K1 kernels than the kept call launched, by
+    # K1's own count, lost events — a launch near a trace's start can be
+    # dropped — and is taken again, at most twice; the gate below holds
+    # whichever trace is kept to the same exact set)
+    for attempt in range(3):
+        K1.launches = 0
+        events = device_events(lambda: phase_i(xs, bs, x, b, plans, "auto",
+                                               cost=shared))
+        launched = K1.launches // 2          # the warm-up call, the kept
+        traced = None if events is None else sum(
+            name.startswith("k1_") for name, _ in events)
+        if traced is None or traced >= launched:
+            break
+        print(f"I: trace {attempt} kept {traced} of {launched} K1 "
+              f"launches: traced again", file=sys.stderr, flush=True)
     mark("trace")
     kernels = None
     if events is not None:
@@ -1771,7 +2110,8 @@ def main() -> int:
                         ("C", run_phase_c), ("D", run_phase_d),
                         ("E", run_phase_e), ("F", run_phase_f),
                         ("G", run_phase_g), ("H", run_phase_h),
-                        ("I", run_phase_i)):
+                        ("I", run_phase_i), ("J", run_phase_j),
+                        ("K", run_phase_k)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

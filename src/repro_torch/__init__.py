@@ -8,5 +8,9 @@ only when a kernel is built, so the package imports without it.
 
 Ported so far: ``core`` (ISA, templates, fused programs with the
 generated Triton kernel K1, geometry negotiation, plan cache),
-``kernels`` (the c0 STREAM family) and ``obs`` (spans, metrics).
+``kernels`` (every instruction, K1 and K3–K8), ``memhier``, ``graph``,
+``regions``, ``sched``, ``obs`` (spans, metrics, drift, blame, tail
+sampling, SLOs), ``configs``, ``models`` (every family) and
+``launch.serve``. Not yet: training, ``distributed/``, the roofline and
+dry-run tools (``ROADMAP.md`` Queue 1).
 """

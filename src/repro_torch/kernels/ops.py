@@ -142,18 +142,13 @@ def chunk_scan(a, b, mode=None):
 
 
 def _chunkscan_state_kernel(a, b, axis: int = 1, *, interpret: bool = False):
-    # kernel path: broadcast decay to state rank, scan along last axis.
-    # (The ref path keeps the broadcast symbolic.) The broadcast and the
-    # two moves copy the decay and the states once each, as the reference
+    # kernel path: the reference broadcasts the decay to state rank and
+    # moves the scanned axis last (two copies of the states' size); K4's
+    # state-scan entry reads the decay at its own rank and the states
+    # where they lie, walking the same rows in the same blocks. A
+    # negative axis counts on the states, as the reference's kernel path
     # does.
-    extra = b.ndim - a.ndim
-    ab = a.reshape(a.shape + (1,) * extra).expand(b.shape)
-    ab = torch.movedim(ab, axis, -1)
-    bb = torch.movedim(b, axis, -1)
-    out = _chunkscan_kernel(ab.reshape(-1, ab.shape[-1]),
-                            bb.reshape(-1, bb.shape[-1]),
-                            interpret=interpret)
-    return torch.movedim(out.reshape(bb.shape), -1, axis)
+    return _ps.chunk_scan_state_kernel(a, b, axis, interpret=interpret)
 
 
 isa.register(Instruction(

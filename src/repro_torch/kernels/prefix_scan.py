@@ -20,13 +20,26 @@ while the current one is scanned. Both sum in an order of their own:
 :func:`k3_bound_constants` gives the constants of its first-order error
 bound.
 
-**K4** (:data:`K4`, replaces ``chunk_scan_pallas``) is Triton, one
-program per block of ``br`` rows that walks its row's column blocks of
-``bc`` in order with the carry in registers, set to 0 before the loop
-(the TPU kernel's carry in VMEM scratch across a sequential grid axis,
-reset at step 0, becomes that loop): per block ``tl.associative_scan`` of
-(a, b) under the affine combine, then ``y = A·carry + B``; the carry is
-y's last column. The output and the carry are ``promote(a, b)``.
+**K4** (:data:`K4`, replaces ``chunk_scan_pallas``) is Gluon (Triton
+with explicit register layouts), one program per block of ``br`` rows
+that walks its row's column blocks of ``bc`` in order with the carry in
+registers, set to 0 before the loop (the TPU kernel's carry in VMEM
+scratch across a sequential grid axis, reset at step 0, becomes that
+loop): per block ``associative_scan`` of (a, b) under the affine
+combine, then ``y = A·carry + B``; the carry is y's last column. The
+output and the carry are ``promote(a, b)``. Its state-scan entry
+(``k4_state_scan``, :meth:`ChunkScanKernel.state_scan`; c4_statescan,
+Mamba2's inter-chunk recurrence) walks the same rows in the same blocks
+without moving them: a program takes ``br`` contiguous payload elements
+of one (batch, head) group of the (B, C, H, P, N) states, its columns
+the C chunks at stride H·P·N, and each column's decay ``a[b, c, h]``
+loaded once at the decay's own rank. The reference instead broadcasts
+the decay to the states' rank and moves the chunk axis last, two copies
+the size of the states. The entry loads and stores along the contiguous
+payload rows and converts each tile, through shared memory, to the
+layout both entries scan in (:func:`scan_layout`). A scan's combine
+order follows its layout, so one stated layout and one block body
+(``_scan_block``) make the entry K4's result bit for bit.
 
 What bounds them on the H100: device-memory bytes (each input read once,
 the output written once; a scan does one or two operations per element).
@@ -122,46 +135,182 @@ def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor,
     return (acum * carry[:, :, None] + bcum).reshape(rows, -1)[:, :cols]
 
 
+def state_scan_map(a: torch.Tensor, states: torch.Tensor, axis: int):
+    """How K4's state-scan entry walks ``states`` in place: (the decay at
+    the states' leading dims, contiguous; the walk's sizes).
+
+    The states are (outer, cols, inner) around the scanned ``axis``
+    (counted on the states). A group g = (o, ai) is ``rows`` contiguous
+    payload elements that share one decay per column; its column c lies
+    at ``(o·cols + c)·inner + ai·rows``, and its decay at
+    ``(o // a_div)·a_outer + ai + c·a_col`` of the flat decay. Where the
+    axis is one of the decay's (SSD: a (B, C, H), states (B, C, H, P,
+    N), axis 1) there are ``a_in`` decays per (o, c), each shared by
+    ``rows`` = inner / a_in elements; past the decay's dims the decay is
+    constant along the axis (a_col = 0) and shared by a_div outer
+    indices."""
+    nd = states.ndim
+    if not (-nd <= axis < nd) or a.ndim > nd:
+        raise IndexError(f"axis {axis} and decay rank {a.ndim} for states "
+                         f"of rank {nd}")
+    ax = axis % nd
+    shape = tuple(states.shape)
+    a = a.expand(shape[:a.ndim]).contiguous()
+    outer, cols = math.prod(shape[:ax]), shape[ax]
+    inner = math.prod(shape[ax + 1:])
+    if ax < a.ndim:
+        a_in = math.prod(shape[ax + 1:a.ndim])
+        walk = dict(a_in=a_in, rows=inner // max(a_in, 1), a_div=1,
+                    a_outer=cols * a_in, a_col=a_in)
+    else:
+        walk = dict(a_in=1, rows=inner, a_div=math.prod(shape[a.ndim:ax]),
+                    a_outer=1, a_col=0)
+    return a, dict(outer=outer, cols=cols, inner=inner, **walk)
+
+
+def state_scan_plain(a: torch.Tensor, states: torch.Tensor,
+                     axis: int) -> torch.Tensor:
+    """K4's state-scan entry in torch eager: the rows of
+    :func:`state_scan_map`'s groups, with their decays gathered by the
+    kernel's own index, through :func:`chunk_scan_plain` at the block
+    K4 uses, and back into the states' layout."""
+    dt = torch.promote_types(a.dtype, states.dtype)
+    a, w = state_scan_map(a, states, axis)
+    outer, cols, a_in, rows = w["outer"], w["cols"], w["a_in"], w["rows"]
+    if states.numel() == 0:
+        return torch.empty(states.shape, dtype=dt, device=states.device)
+    dev = states.device
+    o = torch.arange(outer, device=dev)[:, None, None]
+    c = torch.arange(cols, device=dev)[None, :, None]
+    ai = torch.arange(a_in, device=dev)[None, None, :]
+    idx = (o // w["a_div"]) * w["a_outer"] + ai + c * w["a_col"]
+    ag = a.reshape(-1)[idx]                          # (outer, cols, a_in)
+    ra = ag.permute(0, 2, 1)[:, :, None, :].expand(outer, a_in, rows, cols)
+    rb = states.reshape(outer, cols, a_in, rows).permute(0, 2, 3, 1)
+    bc = block_shape(states.numel() // cols, cols)[1]
+    out = chunk_scan_plain(ra.reshape(-1, cols), rb.reshape(-1, cols), bc)
+    return out.reshape(outer, a_in, rows, cols).permute(0, 3, 1, 2).reshape(
+        states.shape)
+
+
 # ---------------------------------------------------------------------------
-# K4 in Triton, K3 in CUDA C++
+# K4 in Gluon, K3 in CUDA C++
 # ---------------------------------------------------------------------------
 
-TRITON_SOURCE = '''
-import triton
-import triton.language as tl
+GLUON_SOURCE = '''
+from triton.experimental import gluon
+from triton.experimental.gluon import language as gl
 
 
-@triton.jit
+@gluon.jit
 def _affine(pa, pb, qa, qb):
     return pa * qa, qb + qa * pb
 
 
-@triton.jit
+@gluon.jit
+def _scan_block(a, b, carry, last):
+    # one (BR, BC) block in SCAN: the affine scan along the columns, the
+    # carry in; returns (y, y's last column: the next block's carry)
+    acum, bcum = gl.associative_scan((a, b), 1, _affine)
+    y = (acum * gl.expand_dims(carry, 1) + bcum).to(carry.dtype)
+    return y, gl.sum(gl.where(last, y, 0), axis=1).to(carry.dtype)
+
+
+@gluon.jit
 def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
-                  BR: tl.constexpr, BC: tl.constexpr):
-    r = tl.program_id(0).to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)
-    arow = A + r[:, None] * stride_a
-    brow = B + r[:, None] * stride_b
-    orow = O + r[:, None] * cols
-    last = (tl.arange(0, BC) == BC - 1)[None, :]
-    carry = tl.zeros((BR,), O.dtype.element_ty)
+                  BR: gl.constexpr, BC: gl.constexpr, SCAN: gl.constexpr):
+    r = (gl.program_id(0).to(gl.int64) * BR
+         + gl.arange(0, BR, layout=gl.SliceLayout(1, SCAN)).to(gl.int64))
+    cs = gl.arange(0, BC, layout=gl.SliceLayout(0, SCAN))
+    arow = A + gl.expand_dims(r, 1) * stride_a
+    brow = B + gl.expand_dims(r, 1) * stride_b
+    orow = O + gl.expand_dims(r, 1) * cols
+    last = gl.expand_dims(cs == BC - 1, 0)
+    carry = gl.zeros([BR], O.dtype.element_ty, layout=gl.SliceLayout(1, SCAN))
     for c0 in range(0, cols, BC):
-        c = c0 + tl.arange(0, BC)
-        m = (r < rows)[:, None] & (c < cols)[None, :]
-        a = tl.load(arow + c[None, :], mask=m, other=1).to(O.dtype.element_ty)
-        b = tl.load(brow + c[None, :], mask=m, other=0).to(O.dtype.element_ty)
-        acum, bcum = tl.associative_scan((a, b), 1, _affine)
-        y = (acum * carry[:, None] + bcum).to(O.dtype.element_ty)
-        tl.store(orow + c[None, :], y, mask=m)
-        carry = tl.sum(tl.where(last, y, 0), axis=1).to(O.dtype.element_ty)
+        c = gl.expand_dims(c0 + cs, 0)
+        m = gl.expand_dims(r < rows, 1) & (c < cols)
+        a = gl.load(arow + c, mask=m, other=1).to(O.dtype.element_ty)
+        b = gl.load(brow + c, mask=m, other=0).to(O.dtype.element_ty)
+        y, carry = _scan_block(a, b, carry, last)
+        gl.store(orow + c, y, mask=m)
+
+
+@gluon.jit
+def k4_state_scan(A, S, O, n_rb, rows, cols, inner, a_in, a_div, a_outer,
+                  a_col, BR: gl.constexpr, BC: gl.constexpr,
+                  SCAN: gl.constexpr, MOVE: gl.constexpr):
+    # group g = (outer index o, decay index ai): `rows` contiguous payload
+    # elements, its columns the chunks at stride `inner`. Loads and stores
+    # go along the rows (MOVE); the scan runs in SCAN, k4_chunk_scan's
+    # layout, so each row is combined in k4_chunk_scan's order.
+    pid = gl.program_id(0)
+    g = pid // n_rb
+    o = g // a_in
+    ai = g % a_in
+    sbase = o.to(gl.int64) * cols * inner + ai.to(gl.int64) * rows
+    abase = (o // a_div).to(gl.int64) * a_outer + ai
+    r = (pid % n_rb) * BR + gl.arange(0, BR, layout=gl.SliceLayout(1, MOVE))
+    cmove = gl.arange(0, BC, layout=gl.SliceLayout(0, MOVE))
+    cscan = gl.arange(0, BC, layout=gl.SliceLayout(0, SCAN))
+    last = gl.expand_dims(cscan == BC - 1, 0)
+    carry = gl.zeros([BR], O.dtype.element_ty, layout=gl.SliceLayout(1, SCAN))
+    for c0 in range(0, cols, BC):
+        c = c0 + cmove
+        m = gl.expand_dims(r < rows, 1) & gl.expand_dims(c < cols, 0)
+        off = (sbase + gl.expand_dims(c.to(gl.int64), 0) * inner
+               + gl.expand_dims(r, 1))
+        b = gl.load(S + off, mask=m, other=0).to(O.dtype.element_ty)
+        b = gl.convert_layout(b, SCAN)
+        ca = c0 + cscan
+        ac = gl.load(A + abase + ca.to(gl.int64) * a_col, mask=ca < cols,
+                     other=1).to(O.dtype.element_ty)
+        a, b = gl.broadcast(gl.expand_dims(ac, 0), b)
+        y, carry = _scan_block(a, b, carry, last)
+        gl.store(O + off, gl.convert_layout(y, MOVE), mask=m)
 '''
 
 
-def _triton_kernels():
-    """The module of K4, written into the build directory and imported
-    there at first use (Triton reads a kernel's source through
-    ``inspect``)."""
-    return load_module(TRITON_SOURCE, prefix="scan")[0]
+def _gluon_kernels():
+    """The module of K4 (Gluon: Triton with explicit register layouts),
+    written into the build directory and imported there at first use
+    (Triton reads a kernel's source through ``inspect``)."""
+    return load_module(GLUON_SOURCE, prefix="scan")[0]
+
+
+def _num_warps(br: int, bc: int) -> int:
+    return 8 if br * bc >= 2048 else 4
+
+
+def scan_layout(br: int, bc: int, num_warps: int) -> tuple:
+    """(size_per_thread, threads_per_warp, warps_per_cta, order): the
+    register layout of K4's scan over a (br, bc) block, in both of its
+    entries. Four columns a thread (16 bytes of float32), then lanes and
+    warps along the columns, the rest along the rows: the layout that
+    coalesces a row-major block's loads. A scan's combine order follows
+    its layout, so one layout for both entries is what makes the
+    state-scan entry K4's result bit for bit."""
+    spt = min(4, bc)
+    tc = min(32, bc // spt)
+    wc = min(num_warps, max(1, bc // (spt * tc)))
+    return (1, spt), (32 // tc, tc), (num_warps // wc, wc), (1, 0)
+
+
+def _layout(shape: tuple):
+    """A :func:`scan_layout` or :func:`move_layout` tuple as Gluon's
+    ``BlockedLayout`` (Triton imported at launch, never at import)."""
+    from triton.experimental.gluon import language as gl
+    return gl.BlockedLayout(*map(list, shape))
+
+
+def move_layout(br: int, bc: int, num_warps: int) -> tuple:
+    """The state-scan entry's layout for loads and stores: payload rows
+    fastest (they are contiguous in the states), up to four a thread,
+    then lanes and warps along the rows, the rest along the columns."""
+    spt = min(4, max(1, br // 32))
+    tpw = min(32, max(1, br // spt))
+    wpc = max(1, min(num_warps, br // (spt * tpw)))
+    return ((spt, 1), (tpw, 32 // tpw), (wpc, num_warps // wpc), (0, 1))
 
 
 def _rows_operand(x: torch.Tensor) -> torch.Tensor:
@@ -260,10 +409,40 @@ class ChunkScanKernel:
         if a.numel() == 0:
             return out
         br, bc = block_shape(rows, cols)
+        nw = _num_warps(br, bc)
         with torch.cuda.device(a.device):
-            _triton_kernels().k4_chunk_scan[(-(-rows // br),)](
+            _gluon_kernels().k4_chunk_scan[(-(-rows // br),)](
                 a, b, out, rows, cols, a.stride(0), b.stride(0), BR=br,
-                BC=bc, num_warps=8 if br * bc >= 2048 else 4)
+                BC=bc, SCAN=_layout(scan_layout(br, bc, nw)), num_warps=nw)
+        self.launches += 1
+        return out
+
+    def state_scan(self, a: torch.Tensor, states: torch.Tensor,
+                   axis: int) -> torch.Tensor:
+        """The scan along ``axis`` of ``states`` with the decay ``a`` at
+        its own rank (the states' leading dims), in one launch of
+        ``k4_state_scan`` on the states where they lie; the output in
+        their layout (see :func:`state_scan_map`)."""
+        dt = torch.promote_types(a.dtype, states.dtype)
+        if not dt.is_floating_point:
+            raise ValueError(f"K4 scans floating-point rows, got {dt}")
+        check_cuda([a, states], "K4")
+        a, w = state_scan_map(a, states, axis)
+        states = states.contiguous()
+        out = torch.empty(states.shape, dtype=dt, device=states.device)
+        if states.numel() == 0:
+            return out
+        cols, rows = w["cols"], w["rows"]
+        br, bc = block_shape(states.numel() // cols, cols)
+        nw = _num_warps(br, bc)
+        n_rb = -(-rows // br)
+        with torch.cuda.device(states.device):
+            _gluon_kernels().k4_state_scan[(w["outer"] * w["a_in"] * n_rb,)](
+                a, states, out, n_rb, rows, cols, w["inner"], w["a_in"],
+                w["a_div"], w["a_outer"], w["a_col"], BR=br, BC=bc,
+                SCAN=_layout(scan_layout(br, bc, nw)),
+                MOVE=_layout(move_layout(br, bc, nw)),
+                num_warps=nw)
         self.launches += 1
         return out
 
@@ -290,3 +469,15 @@ def chunk_scan_kernel(a: torch.Tensor, b: torch.Tensor,
     if interpret:
         return chunk_scan_plain(a, b, block_shape(*a.shape)[1])
     return K4(a, b)
+
+
+def chunk_scan_state_kernel(a: torch.Tensor, states: torch.Tensor,
+                            axis: int = 1,
+                            interpret: bool = False) -> torch.Tensor:
+    """The affine scan of ``states`` along ``axis`` (counted on the
+    states) with the decay ``a`` at the states' leading dims: K4's
+    state-scan entry on CUDA tensors, reading the states in place, or
+    its walk in torch (``interpret=True``)."""
+    if interpret:
+        return state_scan_plain(a, states, axis)
+    return K4.state_scan(a, states, axis)

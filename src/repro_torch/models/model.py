@@ -2,13 +2,17 @@
 (``src/repro/models/model.py``, serving side, on one device).
 
 Params and caches are nested dicts of tensors in the reference's layout:
-layer params stacked on a leading (L,) axis, the cache as
-(L, B, T, KV, hd). The reference's ``lax.scan`` over layers is a Python
-loop over the stacked leaves. :class:`LM` gives the functions an
+layer params stacked on a leading (L,) axis; the cache as (L, B, T, KV,
+hd) ``k`` and ``v`` for attention, and for the SSM mixer its conv
+windows ``conv: {x, B, C}`` (L, B, W-1, ·) in the activation dtype and
+its ``state`` (L, B, H, P, N) in float32. Every family is served: dense,
+MoE, ``ssm`` (Mamba2) and ``hybrid`` (Hymba: attention and SSM heads in
+parallel, averaged). The reference's ``lax.scan`` over layers is a
+Python loop over the stacked leaves. :class:`LM` gives the functions an
 ``nn.Module`` face.
 
-Not ported yet: the SSM and hybrid mixers (``models/ssm.py``, ROADMAP
-Queue 1 item 13) and the training side (``loss_fn``, remat; item 14).
+Not ported yet: the training side (``loss_fn``, remat; ROADMAP Queue 1
+item 14).
 """
 from __future__ import annotations
 
@@ -19,16 +23,9 @@ from repro_torch.configs.base import ModelConfig
 
 from . import attention as attn
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import embed_tokens, mlp, rmsnorm, unembed
 from .params import DTYPES, init_params, tree_map
-
-_SSM_TODO = ("the {} family needs models/ssm.py, which is not ported yet "
-             "(ROADMAP Queue 1 item 13)")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.has_ssm:
-        raise NotImplementedError(_SSM_TODO.format(cfg.family))
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -53,11 +50,20 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
 # blocks
 # ---------------------------------------------------------------------------
 
+def _mixer(cfg: ModelConfig, p: dict, h: torch.Tensor, positions):
+    if cfg.family == "ssm":
+        return ssm_mod.ssd_forward(cfg, p["ssm"], h)
+    if cfg.family == "hybrid":  # Hymba: parallel attention + mamba heads
+        a = attn.attention(cfg, p["attn"], h, positions)
+        s = ssm_mod.ssd_forward(cfg, p["ssm"], h)
+        return (a + s) * 0.5
+    return attn.attention(cfg, p["attn"], h, positions)
+
+
 def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
-    """One transformer block. Returns (x, aux)."""
-    _check_family(cfg)
+    """One transformer/ssm/hybrid block. Returns (x, aux)."""
     h = rmsnorm(x, p["norm1"])
-    x = x + attn.attention(cfg, p["attn"], h, positions)
+    x = x + _mixer(cfg, p, h, positions)
     return _ffn(cfg, p, x)
 
 
@@ -97,17 +103,28 @@ def _unembed_w(cfg: ModelConfig, params: dict) -> torch.Tensor:
 
 def _abstract_layer_cache(cfg: ModelConfig, batch: int, seq_len: int):
     """One layer's cache leaves as (shape, dtype)."""
-    _check_family(cfg)
-    kv = (batch, attn.cache_len(cfg, seq_len), cfg.n_kv_heads, cfg.head_dim)
     dt = DTYPES[cfg.act_dtype]
-    return {"k": (kv, dt), "v": (kv, dt)}
+    c = {}
+    if cfg.has_attention:
+        kv = (batch, attn.cache_len(cfg, seq_len), cfg.n_kv_heads,
+              cfg.head_dim)
+        c["k"] = (kv, dt)
+        c["v"] = (kv, dt)
+    if cfg.has_ssm:
+        w = cfg.conv_width - 1
+        c["conv"] = {"x": ((batch, w, cfg.d_inner), dt),
+                     "B": ((batch, w, cfg.ssm_state), dt),
+                     "C": ((batch, w, cfg.ssm_state), dt)}
+        c["state"] = ((batch, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state),
+                      torch.float32)
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
-    """Zero stacked (L, B, T, KV, hd) caches."""
-    return {key: torch.zeros((cfg.n_layers,) + shape, dtype=dt, device=device)
-            for key, (shape, dt) in
-            _abstract_layer_cache(cfg, batch, seq_len).items()}
+    """Zero stacked (L, ...) caches of :func:`_abstract_layer_cache`."""
+    return tree_map(lambda leaf: torch.zeros((cfg.n_layers,) + leaf[0],
+                                             dtype=leaf[1], device=device),
+                    _abstract_layer_cache(cfg, batch, seq_len))
 
 
 def grow_cache(cfg: ModelConfig, cache: dict, prefill_len: int,
@@ -135,26 +152,39 @@ def grow_cache(cfg: ModelConfig, cache: dict, prefill_len: int,
 
 
 def _block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, cache: dict,
-                  pos: int):
+                  pos: int) -> torch.Tensor:
+    """One block of a decode step; ``cache`` holds the layer's views of
+    the stacked leaves, which are updated in place."""
     h = rmsnorm(x, p["norm1"])
-    a, nk, nv = attn.attention_decode(cfg, p["attn"], h, cache["k"],
-                                      cache["v"], pos)
-    x, _ = _ffn(cfg, p, x + a)
-    return x, {"k": nk, "v": nv}
+    outs = []
+    if cfg.has_attention:
+        a, _, _ = attn.attention_decode(cfg, p["attn"], h, cache["k"],
+                                        cache["v"], pos)
+        outs.append(a)
+    if cfg.has_ssm:
+        s, conv, state = ssm_mod.ssd_decode(cfg, p["ssm"], h, cache["conv"],
+                                            cache["state"])
+        for key, window in conv.items():
+            cache["conv"][key].copy_(window)
+        cache["state"].copy_(state)
+        outs.append(s)
+    mix = outs[0] if len(outs) == 1 else (outs[0] + outs[1]) * 0.5
+    x, _ = _ffn(cfg, p, x + mix)
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, pos: int):
     """One serve step: tokens (B, 1) int, pos the current position.
 
-    Returns (logits (B, vocab) fp32, cache). Each layer's new k and v are
-    written into ``cache`` in place (see ``attention_decode``); the
-    returned cache is the same dict."""
-    _check_family(cfg)
+    Returns (logits (B, vocab) fp32, cache). Each layer's new k and v,
+    conv windows and SSM state are written into ``cache`` in place (the
+    reference returns updated copies); the returned cache is the same
+    dict."""
     x = embed_tokens(params["embed"], tokens).to(DTYPES[cfg.act_dtype])
     for i in range(cfg.n_layers):
-        x, _ = _block_decode(cfg, _layer(params["layers"], i), x,
-                             _layer(cache, i), pos)
+        x = _block_decode(cfg, _layer(params["layers"], i), x,
+                          _layer(cache, i), pos)
     x = rmsnorm(x, params["final_norm"])
     logits = unembed(_unembed_w(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
@@ -163,24 +193,33 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 def _block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     """block() that also emits the decode cache (no double compute)."""
     h = rmsnorm(x, p["norm1"])
-    a, (k, v) = attn.attention(cfg, p["attn"], h, positions,
-                               return_cache=True)
-    x, _ = _ffn(cfg, p, x + a)
-    return x, {"k": k, "v": v}
+    cache, outs = {}, []
+    if cfg.has_attention:
+        a, (k, v) = attn.attention(cfg, p["attn"], h, positions,
+                                   return_cache=True)
+        cache["k"], cache["v"] = k, v
+        outs.append(a)
+    if cfg.has_ssm:
+        s, (state, conv) = ssm_mod.ssd_forward(cfg, p["ssm"], h,
+                                               return_state=True)
+        cache["conv"], cache["state"] = conv, state
+        outs.append(s)
+    mix = outs[0] if len(outs) == 1 else (outs[0] + outs[1]) * 0.5
+    x, _ = _ffn(cfg, p, x + mix)
+    return x, cache
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict):
     """Full-sequence pass building the decode cache.
 
     Returns (last-position logits (B, vocab) fp32, stacked cache)."""
-    _check_family(cfg)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
     for i in range(cfg.n_layers):
         x, c = _block_prefill(cfg, _layer(params["layers"], i), x, positions)
         caches.append(c)
-    cache = {key: torch.stack([c[key] for c in caches]) for key in ("k", "v")}
+    cache = tree_map(lambda *leaves: torch.stack(leaves), *caches)
     x = rmsnorm(x, params["final_norm"])
     logits = unembed(_unembed_w(cfg, params), x[:, -1], cfg.vocab)
     return logits, cache

@@ -1,0 +1,174 @@
+"""Mamba2 / SSD mixer — the paper's carried prefix scan inside a modern LM
+(``src/repro/models/ssm.py``, on one device).
+
+The chunked SSD algorithm (Dao & Gu, 2024) splits the sequence into
+chunks: a quadratic intra-chunk term plus an inter-chunk *state
+recurrence* ``running[c] = a_chunk[c] · running[c-1] + S_c``. That
+recurrence is the c4_statescan instruction: K4's state-scan entry on CUDA
+tensors (it reads the (B, C, H, P, N) states where they lie), the torch
+oracle on CPU tensors, and K4's plain walk under ``interpret``.
+
+Decode is O(1): a (B, H, P, N) state update per token.
+
+The reference's sharding constraints (``constrain``) are dropped on one
+device. Its ``preferred_element_type=float32`` products on bf16
+operands (``ssd_bf16``) become float32 products of the operands cast to
+float32, which is exact. The (B, C, Q, Q, H) intra-chunk tensors are
+built in place, one at a time: at Mamba2-1.3B's widths and 4 × 8192
+tokens each is 2.15 GB in float32.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
+
+from .layers import rmsnorm
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 cache: torch.Tensor | None = None):
+    """Depthwise causal conv along seq. x: (B,S,C); w: (W,C).
+
+    With cache (B, W-1, C) (decode), returns (y, new_cache)."""
+    width = w.shape[0]
+    if cache is None:
+        pad = x.new_zeros((x.shape[0], width - 1, x.shape[2]))
+        xp = torch.cat([pad, x], dim=1)
+        new_cache = xp[:, -(width - 1):, :] if width > 1 else None
+    else:
+        xp = torch.cat([cache, x], dim=1)
+        new_cache = xp[:, -(width - 1):, :]
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(width))
+    return F.silu(y.float()).to(x.dtype), new_cache
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _proj(cfg: ModelConfig, p: dict, u: torch.Tensor):
+    """u: (B,S,D) → z,x,(B,S,din), Bc,Cc (B,S,N), dt (B,S,H)."""
+    z = torch.einsum("bsd,de->bse", u, p["w_z"])
+    x = torch.einsum("bsd,de->bse", u, p["w_x"])
+    bc = torch.einsum("bsd,dn->bsn", u, p["w_B"])
+    cc = torch.einsum("bsd,dn->bsn", u, p["w_C"])
+    dt = torch.einsum("bsd,dh->bsh", u, p["w_dt"])
+    dt = _softplus(dt.float() + p["dt_bias"].float())
+    return z, x, bc, cc, dt
+
+
+def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
+                return_state: bool = False):
+    """Training / prefill SSD pass. u: (B, S, D) → (B, S, D)
+    (+ (final_state, conv_cache) when return_state, for decode)."""
+    b, s_in, _ = u.shape
+    h, pd, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    q = min(cfg.ssm_chunk, s_in)
+    pad = (-s_in) % q
+    if pad:
+        if return_state:  # padded decay would corrupt the carried state
+            raise ValueError(f"prefill seq {s_in} % ssm_chunk {q} != 0")
+        u = torch.cat([u, u.new_zeros((b, pad, u.shape[-1]))], dim=1)
+    s = s_in + pad
+    nc = s // q
+
+    z, x, bc, cc, dt = _proj(cfg, p, u)
+    w = cfg.conv_width - 1
+    # copies: a slice would keep the whole (B, S, ·) projection alive
+    conv_cache = {"x": x[:, -w:].clone(), "B": bc[:, -w:].clone(),
+                  "C": cc[:, -w:].clone()}
+    x, _ = _causal_conv(x, p["conv_x"])
+    bc, _ = _causal_conv(bc, p["conv_B"])
+    cc, _ = _causal_conv(cc, p["conv_C"])
+
+    a = -torch.exp(p["A_log"].float())                     # (H,) negative
+    dta = dt * a                                           # (B,S,H) log-decay
+    xh = x.reshape(b, s, h, pd)
+
+    # chunk views
+    cdt = torch.bfloat16 if cfg.ssd_bf16 else torch.float32
+    dtac = dta.reshape(b, nc, q, h)
+    dtc = dt.reshape(b, nc, q, h).to(cdt)
+    xc = xh.reshape(b, nc, q, h, pd).to(cdt)
+    bcc = bc.reshape(b, nc, q, n).to(cdt)
+    ccc = cc.reshape(b, nc, q, n).to(cdt)
+
+    cum = torch.cumsum(dtac, dim=2)                        # (B,C,Q,H)
+    # intra-chunk (quadratic within chunk). The reference's double where:
+    # the upper triangle of seg is zeroed before exp, so exp never sees
+    # its large positive values, then the decay is zeroed there (in
+    # place here, the same values)
+    upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=u.device))[None, None, :, :, None]
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,C,Q,Q,H) i-j
+    decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
+    decay = decay.to(cdt)
+    g = torch.einsum("bcin,bcjn->bcij", ccc.float(), bcc.float()).to(cdt)
+    # w_intra = g·decay·dt_j, (B,C,Q,Q,H): the only large intermediate
+    w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
+    del decay, g
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(), xc.float())
+    del w_intra
+
+    # chunk end-states  S_c = Σ_j exp(cum_Q - cum_j) dt_j B_j x_j
+    decay_end = torch.exp(cum[:, :, -1:, :] - cum).to(cdt)  # (B,C,Q,H)
+    xdt = xc * (decay_end * dtc)[..., None]                 # (B,C,Q,H,P)
+    states = torch.einsum("bcjn,bcjhp->bchpn", bcc.float(),
+                          xdt.float())                      # (B,C,H,P,N)
+    del xdt
+
+    # inter-chunk recurrence — the paper's carried scan (c4_statescan):
+    # shared per-(B,C,H) decay, (P,N) state payload, scan along chunks.
+    a_chunk = torch.exp(cum[:, :, -1, :])                  # (B,C,H)
+    run = kops.chunk_scan_state(a_chunk, states, axis=1)   # (B,C,H,P,N)
+    del states
+    prev = torch.cat([torch.zeros_like(run[:, :1]), run[:, :-1]],
+                     dim=1)                                # state before c
+
+    decay_in = torch.exp(cum).to(cdt)                      # (B,C,Q,H)
+    cprev = torch.einsum("bcin,bchpn->bcihp", ccc.float(),
+                         prev.to(cdt).float())
+    del prev
+    y_inter = cprev * decay_in[..., None]
+    del cprev
+
+    y = (y_intra + y_inter).reshape(b, s, h, pd)
+    del y_intra, y_inter
+    y = y + xh.float() * p["D"].float()[:, None]
+    y = y.reshape(b, s, h * pd).to(u.dtype)
+    y = rmsnorm(y * F.silu(z.float()).to(u.dtype), p["norm"])
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])[:, :s_in]
+    if return_state:
+        return out, (run[:, -1].clone(), conv_cache)   # state after last chunk
+    return out
+
+
+def ssd_decode(cfg: ModelConfig, p: dict, u: torch.Tensor,
+               conv_cache: dict, ssm_state: torch.Tensor):
+    """One-token step. u: (B,1,D); ssm_state: (B,H,P,N).
+
+    Returns (out (B,1,D), new_conv_cache, new_ssm_state)."""
+    b = u.shape[0]
+    h, pd = cfg.ssm_heads, cfg.ssm_headdim
+
+    z, x, bc, cc, dt = _proj(cfg, p, u)
+    x, cx = _causal_conv(x, p["conv_x"], conv_cache["x"])
+    bc, cb = _causal_conv(bc, p["conv_B"], conv_cache["B"])
+    cc_, ccv = _causal_conv(cc, p["conv_C"], conv_cache["C"])
+
+    a = -torch.exp(p["A_log"].float())
+    dt1 = dt[:, 0]                                          # (B,H)
+    decay = torch.exp(dt1 * a)                              # (B,H)
+    xh = x[:, 0].reshape(b, h, pd).float()
+    binc = torch.einsum("bn,bh,bhp->bhpn", bc[:, 0].float(), dt1, xh)
+    new_state = decay[..., None, None] * ssm_state + binc
+    y = torch.einsum("bn,bhpn->bhp", cc_[:, 0].float(), new_state)
+    y = y + xh * p["D"].float()[:, None]
+    y = y.reshape(b, 1, h * pd).to(u.dtype)
+    y = rmsnorm(y * F.silu(z.float()).to(u.dtype), p["norm"])
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, {"x": cx, "B": cb, "C": ccv}, new_state

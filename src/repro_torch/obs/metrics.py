@@ -19,9 +19,10 @@ Design constraints, in order:
 
 * **near-zero hot-path overhead** — a counter increment is one Python
   attribute add on a ``__slots__`` object; no locks, no allocation.
-  The stack is single-threaded per process, so increments are not
-  synchronised; a reader on another thread sees at worst a torn read
-  of a monotonically increasing int, which is harmless.
+  The stack is single-threaded per process (the scheduler dispatches
+  serially per round), so increments are not synchronised; the HTTP
+  exposition thread (:func:`start_http_server`) only *reads*, and a torn
+  read of a monotonically increasing int is harmless.
 * **exact exposition** — ``expose_text()`` emits the Prometheus text
   format (``# HELP``/``# TYPE``, cumulative ``_bucket{le=...}``
   lines); ``snapshot()`` emits a JSON-able dict with the same numbers.
@@ -338,3 +339,46 @@ class MetricsRegistry:
 #: stack (dispatch counters, scheduler histograms) live here so one
 #: ``expose_text()`` call sees everything.
 REGISTRY = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return REGISTRY
+
+
+def start_http_server(port: int, registry: Optional[MetricsRegistry] = None,
+                      host: str = "127.0.0.1"):
+    """Serve ``/metrics`` (Prometheus text) and ``/metrics.json`` on a
+    daemon thread.  Returns the ``ThreadingHTTPServer`` (call
+    ``.shutdown()`` to stop).  Used by ``launch/serve.py --metrics``."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    reg = registry or REGISTRY
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            path = self.path.split("?", 1)[0]
+            if path in ("/metrics", "/"):
+                body = reg.expose_text().encode()
+                ctype = "text/plain; version=0.0.4; charset=utf-8"
+            elif path == "/metrics.json":
+                body = reg.snapshot_json().encode()
+                ctype = "application/json"
+            else:
+                self.send_response(404)
+                self.end_headers()
+                return
+            self.send_response(200)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):  # keep stdout clean
+            pass
+
+    server = ThreadingHTTPServer((host, port), _Handler)
+    t = threading.Thread(target=server.serve_forever, daemon=True,
+                         name="repro-metrics")
+    t.start()
+    return server

@@ -18,9 +18,6 @@ Span taxonomy (parent ← child)::
             ├── pallas_build    cold build of the fused kernel (K1)
             └── part            one Plan part (graph plans only)
 
-(``request`` … ``placement`` and ``part`` come with the scheduler and
-graph ports; the port emits ``dispatch``, ``negotiate`` and
-``pallas_build`` today.)
 
 Tracing is **opt-in and near-zero when off**: the module global
 :data:`ACTIVE` is ``None`` by default and every instrumentation site
@@ -183,7 +180,7 @@ class Tracer:
         self.unsampled = 0
         #: callbacks fired once per sampled ROOT span, at its first
         #: finish — the attach point for tail-based sampling
-        #: (the reference's ``repro.obs.tail.TailSampler``), which
+        #: (:class:`repro_torch.obs.tail.TailSampler`), which
         #: must see the whole tree only after its outcome is known.
         self.root_listeners: List = []
         self._stack: List[Span] = []

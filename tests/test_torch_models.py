@@ -146,11 +146,30 @@ def test_lm_state_dict_keys_are_the_reference_paths():
     assert torch.equal(logits, M.prefill(cfg, tp, {"tokens": toks})[0])
 
 
-def test_ssm_families_name_the_missing_module():
-    for arch in ("mamba2_1p3b", "hymba_1p5b"):
-        cfg = configs.get_config(arch).reduced()
-        with pytest.raises(NotImplementedError, match="ssm.py"):
-            M.init_cache(cfg, 1, 8, "cpu")
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "hymba_1p5b"])
+def test_init_cache_leaves_are_the_reference_abstract_cache(arch):
+    # the SSM leaves (conv windows in the activation dtype, the state in
+    # float32) beside the attention half's k and v
+    for reduce in (True, False):
+        jcfg, cfg = (jconfigs.get_config(arch), configs.get_config(arch))
+        if reduce:
+            jcfg, cfg = jcfg.reduced(), cfg.reduced()
+        want = {path: (tuple(s.shape), np.dtype(s.dtype).name) for path, s in
+                tparams.tree_items(JM.abstract_cache(jcfg, 3, 40))}
+        if reduce:
+            got = {path: (tuple(t.shape), str(t.dtype).removeprefix("torch."))
+                   for path, t in tparams.tree_items(
+                       M.init_cache(cfg, 3, 40, "cpu"))}
+            assert all(not t.any() for _, t in tparams.tree_items(
+                M.init_cache(cfg, 3, 40, "cpu")))
+        else:                       # full width: the specs, not the zeros
+            got = {path: (tuple((cfg.n_layers,) + shape),
+                          str(dt).removeprefix("torch."))
+                   for path, (shape, dt) in tparams.tree_items(
+                       M._abstract_layer_cache(cfg, 3, 40))}
+        assert got == want
+        assert ("state" in got) and ("conv.x" in got)
+        assert ("k" in got) == (arch == "hymba_1p5b")
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +362,10 @@ MODEL_CASES = {
         "kimi_k2_1t", {"capacity_factor": 8.0, "attn_impl": "kernel"},
         "interpret"),
     "llama3_8b swa 16": ("llama3_8b", {"swa_window": 16}, None),
+    "mamba2_1p3b ref": ("mamba2_1p3b", {}, "ref"),
+    "mamba2_1p3b interpret": ("mamba2_1p3b", {}, "interpret"),
+    "hymba_1p5b ref": ("hymba_1p5b", {}, "ref"),
+    "hymba_1p5b interpret": ("hymba_1p5b", {}, "interpret"),
 }
 
 
@@ -357,8 +380,8 @@ def run_model(jcfg, cfg, jp, tp, batch_np, n_decode, seq):
     cap = seq + n_decode
     jc = JM.grow_cache(jcfg, jc, seq, cap)
     tc = M.grow_cache(cfg, tc, seq, cap)
-    assert {k: tuple(v.shape) for k, v in tc.items()} == \
-        {k: v.shape for k, v in jc.items()}
+    assert {k: tuple(v.shape) for k, v in tparams.tree_items(tc)} == \
+        {k: v.shape for k, v in tparams.tree_items(jc)}
     jdec = jax.jit(lambda p, c, t, pos: JM.decode_step(jcfg, p, c, t, pos))
     for i in range(n_decode):
         jt = jnp.argmax(jl, -1)[:, None].astype(jnp.int32)
@@ -372,8 +395,10 @@ def run_model(jcfg, cfg, jp, tp, batch_np, n_decode, seq):
 @pytest.mark.parametrize("case", list(MODEL_CASES))
 def test_prefill_grow_and_decode_match_the_reference(case):
     arch, over, mode = MODEL_CASES[case]
-    seq = 24 if over.get("swa_window") else 16
     jcfg, cfg = cfgs(arch, **over)
+    # the SSM mixer takes whole chunks (16 reduced); Hymba's sequence
+    # also outruns its reduced window (32), so the rolled cache is used
+    seq = 48 if cfg.has_ssm else 24 if cfg.swa_window else 16
     jp, tp = weights(jcfg, cfg)
     if cfg.frontend != "none":
         batch = {"embeddings": normal(2, seq, cfg.d_model)}

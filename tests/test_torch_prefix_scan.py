@@ -9,7 +9,7 @@ column block is its own), so the scans agree within the JAX tests' own
 tolerances: rtol 2e-5 / atol 1e-4 for the prefix sum, 2e-4 for the
 affine scans.
 
-The Triton kernels themselves run only on the card
+The kernels themselves run only on the card
 (tests/test_torch_scan_sort_kernels.py).
 """
 import ast
@@ -222,13 +222,14 @@ def test_scan_registrations_mirror_jax():
 
 
 def test_triton_source_defines_k3_and_k4():
-    # K4 and its combine stay Triton; K3 is CUDA C++ (csrc/prefix_scan.cu)
-    tree = ast.parse(ps.TRITON_SOURCE)
+    # K4 and its combine are Gluon (Triton with explicit layouts); K3 is
+    # CUDA C++ (csrc/prefix_scan.cu)
+    tree = ast.parse(ps.GLUON_SOURCE)
     fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert {"_affine", "k4_chunk_scan"} <= set(fns)
     assert "k3_prefix_sum" not in fns
     for fn in fns.values():
-        assert [ast.unparse(d) for d in fn.decorator_list] == ["triton.jit"]
+        assert [ast.unparse(d) for d in fn.decorator_list] == ["gluon.jit"]
     src = (_cuda.CSRC / "prefix_scan.cu").read_text()
     for name, argtypes in ps._K3_SIGNATURES.items():
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src, re.S)
@@ -279,6 +280,23 @@ def test_smoke_phase_g_matches_jax(smoke):
     assert bad == 0
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke.phase_g(a, s, "kernel")
+
+
+def test_smoke_statescan_hold_rejects_a_wrong_decay(smoke):
+    # the hold J and K give K4 at their path's shape must pass the walk
+    # and fail a scan that reads the next chunk's decay or drops the carry
+    a, s = smoke.ssd_inputs(22, (2, 8, 4), (5, 16), "cpu")
+    bc = ps.block_shape(s.numel() // 8, 8)[1]
+    good = smoke.phase_g(a, s, "interpret")
+    check = smoke.Check()
+    assert smoke.hold_statescan(check, "walk", good, good, a, s, bc) < 1e-5
+    assert check.failures == []
+    shifted_a = torch.roll(a, 1, dims=1)
+    no_carry = s.clone()
+    for bad in (smoke.phase_g(shifted_a, s, "interpret"), no_carry):
+        check = smoke.Check()
+        smoke.hold_statescan(check, "broken", bad, good, a, s, bc)
+        assert len(check.failures) == 2      # K4 and |K4 - plain| miss
 
 
 def broken_carries(good: torch.Tensor, bc: int) -> list[torch.Tensor]:
@@ -436,3 +454,118 @@ def test_k3_bound_constants():
     assert ps.k3_bound_constants(torch.float64, 4096 * 64) == (33, 4)
     assert ps.k3_bound_constants(torch.float64, 4096 * 65) == (34, 4)
     assert ps.walk_bound_constants(1 << 26) == (12, 1)
+
+
+# ---------------------------------------------------------------------------
+# K4's state-scan entry: the states in place
+# ---------------------------------------------------------------------------
+
+def former_statescan(a, b, axis, interpret=True):
+    """The c4_statescan kernel path before the state-scan entry: the decay
+    broadcast to state rank, both moved to the last axis, K4's walk (or
+    K4) on the (rows, chunks) copies, moved back."""
+    extra = b.ndim - a.ndim
+    ab = torch.movedim(a.reshape(a.shape + (1,) * extra).expand(b.shape),
+                       axis, -1)
+    bb = torch.movedim(b, axis, -1)
+    out = ps.chunk_scan_kernel(ab.reshape(-1, ab.shape[-1]),
+                               bb.reshape(-1, bb.shape[-1]),
+                               interpret=interpret)
+    return torch.movedim(out.reshape(bb.shape), -1, axis)
+
+
+STATE_CASES = {   # name: (decay shape, states shape, axis)
+    "ssd": ((2, 8, 4), (2, 8, 4, 16, 16), 1),
+    "hymba P*N 800": ((2, 3, 4), (2, 3, 4, 50, 16), 1),
+    "ragged": ((3, 5, 7), (3, 5, 7, 9, 11), 1),
+    "negative axis on the states (P)": ((2, 8, 4), (2, 8, 4, 3, 5), -2),
+    "negative axis on the chunks": ((2, 8, 4), (2, 8, 4, 3, 5), -4),
+    "past the decay's dims": ((2, 8, 4), (2, 8, 4, 3, 5), 4),
+    "leading axis": ((8, 4), (8, 4, 3, 5), 0),
+    "chunks beyond one block": ((2, 40, 3), (2, 40, 3, 4, 4), 1),
+    "broadcast decay": ((2, 8, 1), (2, 8, 4, 3, 5), 1),
+}
+
+
+@pytest.mark.parametrize("case", list(STATE_CASES))
+def test_state_scan_walk_is_the_former_composition_bit_for_bit(case):
+    a_shape, s_shape, axis = STATE_CASES[case]
+    a, s = torch.from_numpy(decay(a_shape)), torch.from_numpy(normal(s_shape))
+    want = former_statescan(a, s, axis)
+    got = ops.chunk_scan_state(a, s, axis=axis, mode="interpret")
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert torch.equal(ps.state_scan_plain(a, s, axis), want)
+
+
+def test_state_scan_promotes_and_takes_strided_states():
+    a = torch.from_numpy(decay((2, 6, 3))).to(torch.bfloat16)
+    s = torch.from_numpy(normal((2, 6, 3, 5, 8)))
+    got = ops.chunk_scan_state(a, s, axis=1, mode="interpret")
+    assert got.dtype == torch.float32
+    assert torch.equal(got, former_statescan(a, s, 1))
+    st = torch.from_numpy(normal((2, 6, 3, 8, 5))).transpose(-1, -2)
+    assert torch.equal(ops.chunk_scan_state(a, st, axis=1, mode="interpret"),
+                       former_statescan(a, st, 1))
+
+
+def test_state_scan_map_walks_each_group_in_place():
+    a, s = torch.zeros(4, 32, 64), torch.zeros(4, 32, 64, 64, 128)
+    a2, w = ps.state_scan_map(a, s, 1)
+    assert a2.is_contiguous() and a2.shape == a.shape
+    assert w == dict(outer=4, cols=32, inner=64 * 64 * 128, a_in=64,
+                     rows=64 * 128, a_div=1, a_outer=32 * 64, a_col=64)
+    _, w = ps.state_scan_map(torch.zeros(2, 8, 4), torch.zeros(2, 8, 4, 3, 5),
+                             -2)                      # the P axis
+    assert w == dict(outer=2 * 8 * 4, cols=3, inner=5, a_in=1, rows=5,
+                     a_div=1, a_outer=1, a_col=0)
+    with pytest.raises(IndexError):
+        ps.state_scan_map(a, s, 5)
+
+
+def test_state_scan_on_cpu_tensors_raises():
+    a, s = torch.ones(2, 4, 3), torch.zeros(2, 4, 3, 2, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ps.chunk_scan_state_kernel(a, s, 1)
+    with pytest.raises(ValueError, match="floating-point"):
+        ps.K4.state_scan(a.int(), s.int(), 1)
+
+
+@pytest.mark.parametrize("br,bc", [(128, 32), (512, 8), (2, 16), (8, 512),
+                                   (4096, 1)])
+def test_move_layout_covers_the_rows_first(br, bc):
+    nw = ps._num_warps(br, bc)
+    spt, tpw, wpc, order = ps.move_layout(br, bc, nw)
+    assert order == (0, 1) and spt[1] == 1
+    assert tpw[0] * tpw[1] == 32 and wpc[0] * wpc[1] == nw
+    assert spt[0] * tpw[0] * wpc[0] <= br       # no row held twice
+
+
+@pytest.mark.parametrize("br,bc", [(128, 32), (512, 8), (2, 16), (8, 512),
+                                   (4096, 1), (1, 4096), (1, 8)])
+def test_scan_layout_coalesces_the_columns(br, bc):
+    nw = ps._num_warps(br, bc)
+    spt, tpw, wpc, order = ps.scan_layout(br, bc, nw)
+    assert order == (1, 0) and spt == (1, min(4, bc))
+    assert tpw[0] * tpw[1] == 32 and wpc[0] * wpc[1] == nw
+    assert spt[1] * tpw[1] * wpc[1] <= bc       # no column held twice
+    if bc >= 4 * 32:
+        assert tpw == (1, 32)                   # a warp spans 128 columns
+
+
+def test_gluon_source_defines_the_state_scan_entry():
+    tree = ast.parse(ps.GLUON_SOURCE)
+    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert set(fns) == {"_affine", "_scan_block", "k4_chunk_scan",
+                        "k4_state_scan"}
+    for fn in fns.values():
+        assert [ast.unparse(d) for d in fn.decorator_list] == ["gluon.jit"]
+    # one block body for both entries, in the one stated layout
+    assert "gl.associative_scan((a, b), 1, _affine)" in ast.unparse(
+        fns["_scan_block"])
+    for name in ("k4_chunk_scan", "k4_state_scan"):
+        body = ast.unparse(fns[name])
+        assert "_scan_block(a, b, carry, last)" in body
+        assert "SCAN: gl.constexpr" in body
+    assert "gl.convert_layout(b, SCAN)" in ast.unparse(fns["k4_state_scan"])
+    assert "warmup" not in ps.GLUON_SOURCE and not hasattr(
+        ps, "parse_scan_layout")

@@ -1,7 +1,7 @@
 """K3–K6 against their plain PyTorch versions, on the card.
 
 K3 (the look-back scan), K5 and K6 are CUDA C++ (built with nvcc at first
-use) and K4 is Triton; none has a CPU mode, so every test here is marked
+use) and K4 is Gluon (Triton); none has a CPU mode, so every test here is marked
 ``gpu`` and skips without a CUDA device. Run them on an H100 with
 ``pytest -m gpu tests/test_torch_scan_sort_kernels.py``.
 
@@ -349,3 +349,49 @@ def test_statescan_on_card_matches_plain(cuda):
     assert ps.K4.launches == before + 1
     want = ops.chunk_scan_state(a, s, axis=1, mode="interpret")
     assert torch.allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def former_statescan(a, s, axis):
+    """The c4_statescan kernel path before K4's state-scan entry: K4 on
+    the decay broadcast to state rank and both moved to the last axis."""
+    extra = s.ndim - a.ndim
+    ab = torch.movedim(a.reshape(a.shape + (1,) * extra).expand(s.shape),
+                       axis, -1)
+    bb = torch.movedim(s, axis, -1)
+    out = ps.chunk_scan_kernel(ab.reshape(-1, ab.shape[-1]),
+                               bb.reshape(-1, bb.shape[-1]))
+    return torch.movedim(out.reshape(bb.shape), -1, axis)
+
+
+@pytest.mark.parametrize("a_shape,s_shape,axis", [
+    ((4, 32, 64), (4, 32, 64, 64, 128), 1),      # chip_smoke G, Mamba2-1.3B
+    ((4, 8, 64), (4, 8, 64, 50, 16), 1),         # Hymba-1.5B: P·N = 800
+    ((3, 5, 7), (3, 5, 7, 9, 11), 1),            # ragged
+    ((2, 40, 3), (2, 40, 3, 4, 4), 1),           # chunks beyond one block
+    ((2, 8, 4), (2, 8, 4, 3, 5), -2),            # counted on the states
+])
+def test_k4_state_scan_is_the_former_composition_bit_for_bit(
+        cuda, a_shape, s_shape, axis):
+    rng = np.random.default_rng(13)
+    a = torch.from_numpy(np.exp(-np.abs(rng.standard_normal(
+        a_shape, dtype=np.float32)))).to(cuda)
+    s = keys(s_shape, torch.float32, 14, cuda)
+    before = ps.K4.launches
+    got = ops.chunk_scan_state(a, s, axis=axis, mode="kernel")
+    assert ps.K4.launches == before + 1
+    want = former_statescan(a, s, axis)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    plain = ops.chunk_scan_state(a, s, axis=axis, mode="interpret")
+    assert torch.allclose(got, plain, rtol=2e-4, atol=2e-4)
+
+
+def test_k4_state_scan_bit_for_bit_in_bfloat16(cuda):
+    # bf16 states and decay: the entry scans in the promoted dtype in the
+    # same layout as K4 on the materialised operands
+    rng = np.random.default_rng(15)
+    a = torch.from_numpy(np.exp(-np.abs(rng.standard_normal(
+        (2, 16, 4), dtype=np.float32)))).to(cuda, torch.bfloat16)
+    s = keys((2, 16, 4, 8, 16), torch.bfloat16, 16, cuda)
+    got = ops.chunk_scan_state(a, s, axis=1, mode="kernel")
+    want = former_statescan(a, s, 1)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)

@@ -1,5 +1,5 @@
 """repro_torch's server (launch/serve.py) and chip_smoke.py's
-phase H at a small size, against the JAX package, on the CPU.
+phases H, J and K at a small size, against the JAX package, on the CPU.
 
 Weights come from the JAX package's ``init_params`` (carried with
 ``params_from_numpy``), prompts from seeded numpy; the port's greedy
@@ -11,9 +11,11 @@ overflows, so the port's dispatch path computes the same layer.
 import dataclasses
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 
 import jax
@@ -108,6 +110,102 @@ def test_generate_equals_a_greedy_loop_over_the_reference(arch, over):
     assert got.dtype == torch.int32 and t_prefill > 0 and t_decode > 0
 
 
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "hymba_1p5b"])
+def test_generate_ssm_families_equal_a_greedy_loop_over_the_reference(arch):
+    # 48 tokens: whole chunks (16 reduced), and past Hymba's window (32)
+    jcfg, cfg, jp, tp = carried(arch)
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 48))
+    want = jax_greedy(jcfg, jp, prompts.astype(np.int32), 6)
+    got, t_prefill, t_decode = serve.generate(
+        cfg, tp, torch.from_numpy(prompts), 6)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.dtype == torch.int32 and t_prefill > 0 and t_decode > 0
+
+
+SSM_ARGS = ["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu",
+            "--batch", "2", "--prompt-len", "32", "--gen", "6"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "hymba-1.5b"])
+def test_main_sched_gives_the_unscheduled_tokens(arch, capsys):
+    args = SSM_ARGS[:1] + [arch] + SSM_ARGS[2:]
+    plain = serve.main(args)
+    # a target no CPU step misses, however loaded the machine
+    sched = serve.main(args + ["--sched", "--sched-policy", "fifo",
+                               "--slo-ms", "60000"])
+    np.testing.assert_array_equal(sched, plain)
+    out = capsys.readouterr().out
+    assert "sched[fifo]: 5 steps, 0 past the 60000 ms SLO" in out
+
+
+def test_main_sched_reports_slo_tail_trace_blame_and_metrics(
+        tmp_path, capsys, monkeypatch):
+    from repro_torch.core import artifact
+    from repro_torch.obs import trace as ttrace
+    import json
+    import re
+    import urllib.request
+    scraped, printed = [], []
+
+    def scrape(seconds):      # --metrics-hold: the endpoint still answers
+        printed.append(capsys.readouterr().out)
+        port = re.search(r"metrics http://127\.0\.0\.1:(\d+)/metrics",
+                         printed[0]).group(1)
+        for path in ("/metrics", "/metrics.json"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                        timeout=10) as r:
+                scraped.append(r.read().decode())
+
+    monkeypatch.setattr(serve.time, "sleep", scrape)
+    paths = {k: tmp_path / f"{k}.json" for k in ("tail", "trace", "sched")}
+    plain = serve.main(SSM_ARGS)
+    capsys.readouterr()
+    gen = serve.main(SSM_ARGS + [
+        "--sched", "--slo-shed", "--slo-ms", "5000",
+        "--obs-tail", str(paths["tail"]), "--obs-trace", str(paths["trace"]),
+        "--sched-trace", str(paths["sched"]), "--metrics", "0",
+        "--metrics-hold", "1", "--region-slots", "1",
+        "--plan-cache", str(tmp_path / "plans")])
+    np.testing.assert_array_equal(gen, plain)        # nothing shed
+    out = "".join(printed) + capsys.readouterr().out
+    assert len(printed) == 1 and len(scraped) == 2
+    for line in ("sched[edf]: 5 steps, 0 past the 5000 ms SLO",
+                 "regions[lru]: 1 slots/lane", "slo[decode]: burn",
+                 "sched trace (", "obs trace (", "obs tail: kept",
+                 "blame[decode]:"):
+        assert line in out, line
+    assert "slo-shed:" not in out
+    assert "# TYPE repro_sched_latency_seconds histogram" in scraped[0]
+    assert json.loads(scraped[1])["repro_slo_burn_rate"]["kind"] == "gauge"
+    assert json.loads(paths["trace"].read_text())["traceEvents"]
+    for line in paths["tail"].read_text().splitlines():
+        json.loads(line)
+    assert len(paths["sched"].read_text().splitlines()) > 5
+    # the run's tracer and plan cache are put back
+    assert ttrace.get_tracer() is None
+    assert artifact._STATE == (False, None)
+
+
+def test_main_slo_shed_drops_steps_past_the_slo(capsys, monkeypatch):
+    # every step takes over the 1 ms target (a 3 ms pause in it), so the
+    # first completion breaches; the burn windows (20 and 200 ms) still
+    # hold it at the next arrival, which is shed, and so are the rest
+    # (a shed counts as a bad event). No token for a shed step.
+    step = serve.M.decode_step
+
+    def slow_step(*args):
+        time.sleep(3e-3)
+        return step(*args)
+
+    monkeypatch.setattr(serve.M, "decode_step", slow_step)
+    gen = serve.main(SSM_ARGS + ["--gen", "40", "--sched", "--slo-shed",
+                                 "--slo-ms", "1"])
+    out = capsys.readouterr().out
+    shed = int(re.search(r"slo-shed: (\d+) decode steps shed", out).group(1))
+    assert shed > 0 and gen.shape == (2, 40 - shed)
+    assert "BURNING" in out and "sched[edf]: 1 steps, 1 past" in out
+
+
 # ---------------------------------------------------------------------------
 # chip_smoke.py's phase H at a small size
 # ---------------------------------------------------------------------------
@@ -169,9 +267,73 @@ def test_smoke_routing_agreement(smoke):
     assert smoke.routing_agreement(a, b) == 7 / 8
 
 
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phases J and K at a small size
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["mamba2_1p3b", "hymba_1p5b"])
+def test_smoke_phase_ssm_matches_jax(smoke, arch):
+    jcfg, cfg, jp, tp = carried(arch)
+    prompts = smoke.serve_prompts(0, cfg, 2, 48, "cpu")
+    with jisa.use("interpret"):
+        want = jax_greedy(jcfg, jp, prompts.numpy().astype(np.int32), 4)
+    got = smoke.phase_h(cfg, tp, prompts, 4, "interpret")[0]
+    np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke.phase_h(cfg, tp, prompts, 4, "kernel")
+
+
+def test_smoke_ssm_serves_keep_every_published_width(smoke):
+    for phase, (arch, batch, prompt, gen) in smoke.SSM_SERVES.items():
+        cfg = get_config(arch)
+        assert cfg == get_config(arch.replace("_", "-"))
+        assert prompt % cfg.ssm_chunk == 0 and gen > 1
+        limit = smoke.PEAK_MEM_LIMIT[phase]
+        assert limit == smoke.ssm_peak_limit(cfg, batch, prompt)
+        assert limit > smoke.weight_bytes(cfg)
+    arch, batch, prompt, _ = smoke.SSM_SERVES["J"]
+    cfg = get_config(arch)
+    assert (cfg.n_layers, cfg.d_model, cfg.d_inner, cfg.ssm_heads,
+            cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk, cfg.vocab) == \
+        (48, 2048, 4096, 64, 64, 128, 256, 50280)
+    # each layer's state scan at phase G's shape
+    assert (batch, prompt // cfg.ssm_chunk, cfg.ssm_heads) == smoke.SSD_SHAPE
+    assert (cfg.ssm_headdim, cfg.ssm_state) == smoke.SSD_STATE
+    assert 2.50 < smoke.weight_bytes(cfg) / 2**30 < 2.51        # GiB
+    arch, batch, prompt, _ = smoke.SSM_SERVES["K"]
+    cfg = get_config(arch)
+    assert prompt == 2 * cfg.swa_window and cfg.n_layers == 32
+    assert 2.96 < smoke.weight_bytes(cfg) / 2**30 < 2.97
+
+
+def test_smoke_event_kinds_and_top_kernels(smoke):
+    events = [("void k4_state_scan", 0.2), ("vectorized_elementwise_kernel",
+                                             3.0),
+              ("ampere_sgemm_128x64", 1.0), ("vectorized_elementwise_kernel",
+                                             2.0), ("softmax_warp", 0.5)]
+    ms = smoke.ms_by_kind(events, smoke.LM_KINDS)
+    assert ms["K4"] == 0.2 and ms["elementwise"] == 5.0
+    assert ms["matmul"] == 1.0 and ms["other"] == 0.5     # softmax
+    assert smoke.top_events(events, n=2, width=10) == [
+        ["vectorized", 5.0, 2], ["ampere_sge", 1.0, 1]]
+
+
+def test_smoke_scheduled_serve_helper(smoke):
+    extra = ["--reduced", "--device", "cpu"]
+    plain, _ = smoke.scheduled_serve("mamba2_1p3b", 2, 32, 5, extra)
+    # a target no CPU step can miss: a shed step would change the tokens
+    sched, text = smoke.scheduled_serve(
+        "mamba2_1p3b", 2, 32, 5,
+        extra + ["--sched", "--slo-shed", "--slo-ms", "60000"])
+    np.testing.assert_array_equal(sched, plain)
+    assert "sched[edf]:" in text and "slo[decode]:" in text
+
+
 _CHILD = textwrap.dedent("""
     import sys
     import repro_torch.models.model
+    import repro_torch.models.ssm
+    import repro_torch.obs
     import repro_torch.launch.serve
     from repro_torch.kernels import _cuda
     assert _cuda._LOADED == {}
