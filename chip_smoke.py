@@ -14,7 +14,12 @@ Kimi-K2's published widths, whose MoE router launches K7 (top-k, CUDA
 C++) and K3 and whose prefill attention launches K8 (CUDA C++, wgmma and
 TMA in bfloat16); and the server on Mamba2-1.3B and Hymba-1.5B, every
 layer at every published width, whose prefill launches K4 once a layer
-(and, for Mamba2, the scheduled decode with SLO shedding). It builds
+(and, for Mamba2, the scheduled decode with SLO shedding); and the
+trainer (``launch.api.make_train_step``) on Mamba2-1.3B at every
+published width and all 48 layers, whose forward, remat recompute and
+backward launch K4 (its backward the reverse walk of the same kernel),
+then MoE training at Kimi-K2's reduced config (K7 with its gradient, K3)
+and the train entry point with a checkpoint and a resume. It builds
 every kernel from the checkout's sources (the CUDA sources first, one
 nvcc each, in parallel, with ptxas's register and shared-memory report),
 holds each against its plain PyTorch version and the torch oracles on
@@ -23,7 +28,8 @@ held busy, so the time is device time; and host wall time per call),
 and prints one ``kernels`` JSON line and, last, the device JSON line.
 Phase I serves two tenants through the scheduler, whose batches and plan
 parts launch K1, and prints a ``sched`` JSON line before the kernels
-line; phases H, J and K each print a ``serve`` JSON line.
+line; phases H, J and K each print a ``serve`` JSON line, L a ``train``
+line and M a ``train_moe`` line.
 Exits non-zero, printing no result, when no CUDA device is visible or
 any phase fails.
 
@@ -109,6 +115,37 @@ Phases (inputs from numpy with a fixed seed):
      rolled SWA cache), 16 greedy tokens: K4 32 times in prefill; the
      sliding-window attention takes the chunked path, as in the reference
      (no K8)
+  L  the trainer (repro_torch.launch.api.make_train_step) on Mamba2-1.3B
+     uncut — every published width, all 48 layers, bf16 params, AdamW
+     with float32 moments, remat full, attn_impl chunked as the
+     reference's train.py keeps it — random weights from a seeded CUDA
+     generator, 3 steps of 4 × 4096 tokens from SyntheticLMData(seed):
+     each step launches K4 96 times forward (48 in the forward, 48 in
+     remat's recompute) and 48 times in reverse (the backward), and no
+     other kernel; ms a step, tokens/s, one traced step's device time by
+     kernel kind, its idle share and K4's forward and reverse device ms
+     (told apart by their order in the trace); every K4 call of a step
+     scans states of (4, 16, 64, 64, 128) (16 chunks of 256). Then, at
+     that shape on random decays in (0, 1] (the model's own decays are 0
+     in float32, so there λ = g): K4's forward entry, its reverse walk
+     on the backward's operands, and c4_statescan's backward
+     (ops.chunk_scan_state under autograd: the shifted decay, the
+     reverse walk, da's reduction) in kernel and interpret modes; the
+     forward's and the reverse walk's ``kernels`` rows at that shape
+     with the step's launch counts. Last, one gradient of the loss at
+     the same widths and tokens cut to 2 layers in float32 (so that the
+     modes differ only in the scans' rounding), A_log and dt_bias reset
+     so that a chunk's decay is spread over (0.05, 0.95) (carrying_decays):
+     kernel and interpret mode against ref mode
+  M  MoE training at Kimi-K2's reduced config (a full-width MoE train
+     step does not fit one card: Kimi-K2's experts are 16.9 B params a
+     layer; 2 layers, 8 experts top-2, capacity factor 8): one train step
+     with K7 and K3 (isa kernel mode) against the same step on the
+     oracles (ref mode) from the same state and batch; K7's gradient at
+     H's router shape (4096, 384), k 8; then the train entry point
+     (repro_torch.launch.train.main) on reduced Mamba2 for 6 steps with
+     checkpoints every 3 in a temporary directory under build/, and a
+     resume to 9
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -185,13 +222,41 @@ Tolerances (fixed before any run):
     as G's and bit-identity to the materialised path; logits finite, two
     greedy runs bit-identical, the launch counts above, J's scheduled
     tokens equal to its unscheduled ones with nothing shed;
+  * L: every step's loss and gradient norm finite; step 0 (warmup, lr
+    0) leaves the params bit for bit; step 1 moves them; the launch
+    counts above, each step. At the step's states shape: K4's forward
+    entry, the plain walk and |K4 − plain| within G's float64 bound; the
+    reverse walk bit-identical to the forward entry on flipped copies
+    (it maps the chunk index only: layout and combine order are the
+    forward's), and, flipped, the same three holds; c4_statescan's
+    backward in kernel and interpret modes against float64 at
+    ``statescan_grad_misses``' bounds (ds = λ at G's bound counted from
+    the end, da through the product and the reduction), and the two
+    modes' ds within that bound of each other. The 2-layer float32
+    gradient: every leaf of kernel mode and of interpret mode within
+    TRAIN_GRAD_REL = 1e-4 of its max |g| of ref mode's, and the loss
+    within 1e-4 relative (the issue's tolerance for the port's gradients
+    against the JAX package's; at the reduced Mamba2 on the CPU the two
+    modes differ by 3e-7 of max |g|, and a backward that drops the
+    carry, drops da or walks the unshifted decay by 1e-1 or more), the
+    chunks' median decay above 0.05;
+  * M: kernel-mode gradients, loss, gradient norm and new train state
+    bit-identical to ref mode's (K7 and K3 are exact against their
+    oracles; scatters and gathers in their deterministic form in both),
+    K7 and K3 launched 2 × 2 times in kernel mode (forward and recompute
+    of each layer) and nothing in ref mode; K7's gradient at the router
+    shape equal to the scatter of ref.topk's picks; train.main's resume
+    prints "resumed from step 6" and ends on a finite loss;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
     (padding the one-row operand to 8 rows would pass it), for H the
     weights' bytes + 8 GB, 3 GB for I (≈ 0.8 GB for A's requests,
     ≈ 1.6 GB for B's inputs and outputs), and for J and K the weights'
     bytes plus a count of one layer's largest intermediates
-    (``ssm_peak_limit``: 14.5 GB for J, 8.4 GB for K).
+    (``ssm_peak_limit``: 14.5 GB for J, 8.4 GB for K); for L the larger
+    of a train step's two peaks counted in bytes (``train_peak_limit``:
+    the forward and backward's, the optimizer update's: 50.2 GB); 3 GB
+    for M.
 
 Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
 operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
@@ -241,7 +306,9 @@ from repro_torch.kernels.flashattn import K8  # noqa: E402
 from repro_torch.kernels.prefix_scan import K3, K4  # noqa: E402
 from repro_torch.kernels.sortnet import K5, K6  # noqa: E402
 from repro_torch.kernels.topk import K7  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import api, serve, train  # noqa: E402
+from repro_torch.data import SyntheticLMData, to_device  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.graph import partition  # noqa: E402
 from repro_torch.memhier import H100  # noqa: E402
 from repro_torch.sched import (CostModel, RequestQueue, Scheduler,  # noqa: E402
@@ -287,6 +354,12 @@ SSM_SERVES = {   # phase: (arch, batch, prompt length, greedy tokens)
     "K": ("hymba_1p5b", 4, 2048, 16),
 }
 SCHED_PROMPT, SCHED_SLO_MS = 256, 1000.0   # phase J's scheduled run
+TRAIN_ARCH = "mamba2_1p3b"         # phase L: trained uncut
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
+TRAIN_GRAD_LAYERS = 2              # phase L's gradient check (docstring)
+TRAIN_GRAD_REL = 1e-4              # each leaf, of its max |g|
+MOE_ARCH = "kimi_k2_1t"            # phase M: reduced (see the docstring)
+ROUTER_SHAPE, ROUTER_K = (4096, 384), 8     # phase M: H's prefill router
 LM_REDUCED = ["n_layers 61 → 2: two layers of bf16 weights are 67.9 GiB "
               "on one 80 GB card",
               "attn_impl chunked → kernel: the switch under which prefill "
@@ -321,11 +394,44 @@ def ssm_peak_limit(cfg, batch: int, seq: int) -> float:
     return weight_bytes(cfg) + 3 * quad + 10 * act + 3 * attn
 
 
+def train_peak_limit(cfg, batch: int, seq: int) -> float:
+    """Phase L's device-memory limit, counted in bytes: the larger of the
+    two peaks of a train step.
+
+    * forward and backward: the params, their gradient, the gradient's
+      per-layer parts before the stack (bf16, one copy each) and two
+      float32 moments (4 × the bf16 params); the 48 saved layer inputs
+      (B, S, D) in bf16 (remat full); one layer's recompute and backward
+      intermediates: eight (B, C, Q, Q, H) float32 intra-chunk tensors
+      (the saved exp, the masked decay, its two products, and the
+      backward's gradients of them) and 24 float32 (B, S, d_inner)
+      activations; four (B·S, vocab) float32 tensors (the logits, the
+      log-sum-exp's exp and gradient, the gather's gradient);
+    * the optimizer's update: the old params, moments and clipped
+      gradient and the new params and moments (11 × the bf16 params),
+      and six float32 copies of the largest leaf (its gradient, the
+      two moments, the update and two temporaries)."""
+    params = weight_bytes(cfg)
+    q = min(cfg.ssm_chunk, seq)
+    quad = batch * seq * q * cfg.ssm_heads * 4
+    act = batch * seq * cfg.d_inner * 4
+    logits = batch * seq * cfg.vocab * 4
+    saved = cfg.n_layers * batch * seq * cfg.d_model * 2
+    largest = max(math.prod(s.shape) for _, s in
+                  tree_items(param_specs(cfg))) * 4
+    forward_backward = 7 * params + saved + 8 * quad + 24 * act + 4 * logits
+    update = 11 * params + 6 * largest
+    return max(forward_backward, update)
+
+
 PEAK_MEM_LIMIT = {"A": 3e9, "B": 3e9, "C": 3e9, "D": 3e9,
                   "E": 6e9, "F": 4e9, "G": 4e9,
                   "H": weight_bytes(lm_config()) + 8e9, "I": 3e9,
                   **{ph: ssm_peak_limit(get_config(arch), b, p)
-                     for ph, (arch, b, p, _) in SSM_SERVES.items()}}
+                     for ph, (arch, b, p, _) in SSM_SERVES.items()},
+                  "L": train_peak_limit(get_config(TRAIN_ARCH), TRAIN_BATCH,
+                                        TRAIN_SEQ),
+                  "M": 3e9}
 KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
     "K1": ("triton", "src/repro_torch/core/fused_kernel.py",
            "src/repro/core/program.py:914"),
@@ -698,6 +804,90 @@ def hold_statescan(check, what, got, plain, a, states, bc: int) -> float:
         check.true(f"{what} {key}: {n} elements outside the summation "
                    f"bound", n == 0)
     return worst
+
+
+def statescan_grad_misses(grads: dict, a, states, g, bc: int) -> tuple:
+    """The backward of ``y = chunk_scan_state(a, states, axis=1)`` under
+    the output's gradient ``g``, held against float64 for each mode's
+    ``(da, ds)`` in ``grads`` and between the first two modes' ds; returns
+    ({check: elements outside its bound}, {check: largest |Δ|}).
+
+    * ds = λ, λ[c] = g[c] + a[c+1]·λ[c+1]: the state scan's first-order
+      bound counted from the end, (⌈log2 bc⌉ + ⌈(C−c)/bc⌉ + 2)·eps32·
+      Σ_{j≥c}|g_j|;
+    * da[c] = Σ_{P,N} λ[c]·y[c−1] (y[−1] = 0): Σ(b_λ·|y[c−1]| +
+      |λ[c]|·b_y[c−1]) + P·N·eps32·Σ|λ[c]·y[c−1]|, b_y the forward's
+      bound, P·N·eps32 the product's and the reduction's own rounding in
+      any summation order."""
+    n_c = states.shape[1]
+    lg = math.ceil(math.log2(bc))
+    ad = a.double()[..., None, None]
+    sd, gd = states.double(), g.double()
+    y, lam = torch.empty_like(sd), torch.empty_like(gd)
+    acc = torch.zeros_like(sd[:, 0])
+    for c in range(n_c):
+        acc = ad[:, c] * acc + sd[:, c]
+        y[:, c] = acc
+    acc = torch.zeros_like(gd[:, 0])
+    for c in reversed(range(n_c)):
+        acc = gd[:, c] + (ad[:, c + 1] * acc if c + 1 < n_c else 0.0)
+        lam[:, c] = acc
+    c = torch.arange(n_c, device=g.device, dtype=torch.float64).reshape(
+        (1, n_c) + (1,) * (g.ndim - 2))
+    b_y = (lg + torch.ceil((c + 1) / bc) + 2) * EPS * torch.cumsum(
+        sd.abs(), 1)
+    b_lam = (lg + torch.ceil((n_c - c) / bc) + 2) * EPS * torch.cumsum(
+        gd.abs().flip(1), 1).flip(1)
+    del sd, gd, acc
+    prev = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], 1)
+    b_prev = torch.cat([torch.zeros_like(b_y[:, :1]), b_y[:, :-1]], 1)
+    del y, b_y
+    pay = tuple(range(a.ndim, g.ndim))
+    prod = lam * prev
+    da64 = prod.sum(pay)
+    b_da = ((b_lam * prev.abs() + lam.abs() * b_prev).sum(pay)
+            + math.prod(g.shape[a.ndim:]) * EPS * prod.abs().sum(pay))
+    del prev, b_prev, prod
+    bad, worst = {}, {}
+    for mode, (da, ds) in grads.items():
+        for key, err, bound in (
+                (f"{mode} ds", (ds.double() - lam).abs(), b_lam),
+                (f"{mode} da", (da.double() - da64).abs(), b_da)):
+            bad[key] = int((err > bound).sum())
+            worst[key] = float(err.max())
+    m0, m1 = list(grads)[:2]
+    err = (grads[m0][1].double() - grads[m1][1].double()).abs()
+    key = f"|ds {m0} - {m1}|"
+    bad[key], worst[key] = int((err > b_lam).sum()), float(err.max())
+    return bad, worst
+
+
+def carrying_decays(params: dict, chunk: int, seed: int) -> None:
+    """Sets, in place, every SSD mixer's A_log to 0 (A = −1) and its
+    dt_bias so that a chunk's nominal decay exp(−chunk·softplus(dt_bias))
+    (the token's own term left out) is uniform in [0.05, 0.95] over the
+    heads, from seeded numpy: under the reference init a chunk decays by
+    ≈ e^−500, 0 in float32, and the scans' carry would not be
+    exercised."""
+    rng = np.random.default_rng(seed)
+    for sub in params.values():
+        if not isinstance(sub, dict):
+            continue
+        if "dt_bias" in sub:
+            want = rng.uniform(0.05, 0.95, tuple(sub["dt_bias"].shape))
+            dt = -np.log(want) / chunk
+            sub["dt_bias"].copy_(torch.from_numpy(np.log(np.expm1(dt))))
+            sub["A_log"].zero_()
+        else:
+            carrying_decays(sub, chunk, seed + 1)
+
+
+def grad_ratios(got: dict, want: dict) -> dict:
+    """Each leaf's max |got − want| over its max |want|."""
+    want = dict(tree_items(want))
+    return {path: float((x.double() - want[path].double()).abs().max())
+            / max(float(want[path].double().abs().max()), 1e-30)
+            for path, x in tree_items(got)}
 
 
 # ---------------------------------------------------------------------------
@@ -1138,7 +1328,8 @@ LM_KINDS = (("K8", "k8_flash"), ("K7", "k7_topk"), ("K3", "k3_"),
 def device_events(fn, wall: list | None = None
                   ) -> list[tuple[str, float]] | None:
     """(name, device ms) of each device event (kernels, copies, fills) of
-    one call of ``fn`` in a ``torch.profiler`` trace; None when the
+    one call of ``fn`` in a ``torch.profiler`` trace, in the order they
+    started; None when the
     profiler sees no device time. The trace runs a warm-up call first and
     keeps only the second: a launch right after the trace starts can be
     missing from it (K5, the mergesort app's first kernel, was). Each
@@ -1154,12 +1345,13 @@ def device_events(fn, wall: list | None = None
     from torch.profiler import ProfilerActivity, profile, schedule
     events = []
 
-    def keep(prof):
-        events.extend((e.name, e.device_time_total / 1e3)
-                      for e in prof.events()
-                      if e.device_type == DeviceType.CUDA
-                      and not e.name.startswith("ProfilerStep")
-                      and "spin_kernel" not in e.name)
+    def keep(prof):          # in the order the device ran them
+        events.extend((e.name, e.device_time_total / 1e3) for e in sorted(
+            (e for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("ProfilerStep")
+             and "spin_kernel" not in e.name),
+            key=lambda e: e.time_range.start))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1),
@@ -2084,6 +2276,371 @@ def run_phase_i(dev, check, rows):
     print(json.dumps({"sched": summary}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases L and M: training on the card
+# ---------------------------------------------------------------------------
+
+def k4_by_direction(events, n_layers: int) -> dict:
+    """Device ms of K4's forward and reverse launches in one traced train
+    step under remat full, told apart by their order (both directions are
+    one kernel): the forward's n_layers, then per layer from the last the
+    recompute's forward and the backward's reverse walk."""
+    k4 = [ms for name, ms in events if "k4_state_scan" in name]
+    if len(k4) != 3 * n_layers:
+        return {"k4_events": len(k4), "forward_ms": None,
+                "reverse_ms": None}
+    back = k4[n_layers:]
+    return {"k4_events": len(k4),
+            "forward_ms": sum(k4[:n_layers]) + sum(back[0::2]),
+            "reverse_ms": sum(back[1::2])}
+
+
+def params_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                                  tree_leaves(b)))
+
+
+def max_moved(a: dict, b: dict) -> float:
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def run_phase_l(dev, check, rows):
+    """Train Mamba2-1.3B uncut (every published width, all 48 layers)
+    for TRAIN_STEPS steps of 4 × 4096 tokens through api.make_train_step:
+    bf16 params, AdamW with float32 moments, remat full; then K4 at the
+    step's own shape and the SSD gradients against ref mode."""
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(TRAIN_ARCH)
+    n_l = cfg.n_layers
+    t0 = time.perf_counter()
+    state = api.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 30), dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = SyntheticLMData(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, SEED)
+    step_fn = api.make_train_step(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    states_shape = (TRAIN_BATCH, TRAIN_SEQ // cfg.ssm_chunk, cfg.ssm_heads,
+                    cfg.ssm_headdim, cfg.ssm_state)
+
+    # the main path: TRAIN_STEPS steps, each one's launches counted
+    steps = []
+    for i in range(TRAIN_STEPS):
+        batch = to_device(data.host_batch(i), dev)
+        torch.cuda.synchronize()
+        with Tap(ps, "chunk_scan_state_kernel",
+                 lambda args, kw, out: tuple(out.shape)) as t4:
+            K4.launches = K4.reverse_launches = K7.launches = 0
+            K3.launches = K8.launches = 0
+            t0 = time.perf_counter()
+            new_state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            launches = {"K4 forward": K4.launches,
+                        "K4 reverse": K4.reverse_launches,
+                        "K7": K7.launches, "K3": K3.launches,
+                        "K8": K8.launches}
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        steps.append({"step": i, "wall_ms": wall_ms, "loss": loss,
+                      "grad_norm": gnorm, "launches": launches})
+        check.true(f"L step {i}: loss {loss}, grad norm {gnorm} not finite",
+                   math.isfinite(loss) and math.isfinite(gnorm))
+        check.true(f"L step {i}: launches {launches}, want K4 {2 * n_l} "
+                   f"forward (forward and remat's recompute) and {n_l} "
+                   f"reverse, no other kernel",
+                   launches == {"K4 forward": 2 * n_l, "K4 reverse": n_l,
+                                "K7": 0, "K3": 0, "K8": 0})
+        check.true(f"L step {i}: K4 scanned states of {set(t4.calls)}, "
+                   f"want {states_shape} only",
+                   set(t4.calls) == {states_shape})
+        check.true(f"L step {i}: step counter {int(new_state['step'])}",
+                   int(new_state["step"]) == i + 1)
+        if i == 0:      # warmup: lr 0 at step 0, so nothing moves
+            check.true("L step 0 (lr 0) changed the params",
+                       params_equal(state["params"], new_state["params"]))
+        if i == 1:
+            moved = max_moved(state["params"], new_state["params"])
+            steps[-1]["max_param_change"] = moved
+            check.true("L step 1: the params did not move", moved > 0)
+        state = new_state
+        del new_state, metrics
+    step_ms = float(np.median([s["wall_ms"] for s in steps[1:]]))
+
+    # one traced step (the state is not advanced by it)
+    batch = to_device(data.host_batch(TRAIN_STEPS), dev)
+    traced = []
+    events = device_events(lambda: step_fn(state, batch), traced)
+    by_kind = None if events is None else ms_by_kind(events, LM_KINDS)
+    busy = None if by_kind is None else sum(by_kind.values())
+    summary = {
+        "phase": "L", "card": CARD, "model": TRAIN_ARCH, "reduced": [],
+        "n_layers": n_l, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "remat": cfg.remat, "optimizer": cfg.optimizer,
+        "param_dtype": cfg.param_dtype,
+        "opt_state_dtype": cfg.opt_state_dtype,
+        "weight_bytes": weight_bytes(cfg), "init_s": init_s,
+        "steps": steps, "step_wall_ms": step_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "device_ms_by_kind": by_kind, "device_busy_ms": busy,
+        "traced_wall_ms": traced[0] if traced else None,
+        "device_idle_share": (None if busy is None or not traced
+                              else 1 - busy / traced[0]),
+        "top_kernels": None if events is None else top_events(events),
+        "k4_in_step": (None if events is None
+                       else k4_by_direction(events, n_l))}
+    del events, state, batch
+    torch.cuda.empty_cache()
+    summary["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    summary["peak_limit_bytes"] = PEAK_MEM_LIMIT["L"]
+    summary["k4_at_step_shape"] = hold_train_scan(
+        dev, check, rows, states_shape, steps[-1]["launches"])
+    summary["grads_against_ref"] = hold_train_grads(dev, check, cfg)
+    print(json.dumps({"train": summary}), flush=True)
+
+
+def hold_train_scan(dev, check, rows, shape, launches) -> dict:
+    """K4 at the train step's own states shape (B, C, H, P, N), on random
+    decays in (0, 1] (the model's own are 0 in float32, so there λ = g):
+    the forward entry and the reverse walk on the backward's operands
+    (the shifted decay a[c+1]) each at G's float64 bound and against
+    its plain walk, the reverse bit-identical to the forward on flipped
+    copies; then c4_statescan's backward (StateScanFn: the shifted
+    decay, the reverse walk, da's reduction) in kernel and interpret
+    modes against float64 (:func:`statescan_grad_misses`). Adds the
+    forward's and the reverse walk's ``kernels`` rows with the step's
+    launch counts."""
+    a, s = ssd_inputs(SEED + 31, shape[:3], shape[3:], dev)
+    g = ssd_inputs(SEED + 32, shape[:3], shape[3:], dev)[1]
+    chunks = shape[1]
+    br, bc = ps.block_shape(s.numel() // chunks, chunks)
+    n = s.numel()
+    fwd = K4.state_scan(a, s, 1)
+    plain = ps.chunk_scan_state_kernel(a, s, 1, interpret=True)
+    worst_f = hold_statescan(check, "L K4 forward", fwd, plain, a, s, bc)
+    err_f = max_abs(fwd, plain)
+    del fwd, plain
+    rows.append(entry(
+        f"L chunk_scan_state {shape} float32 in place (the train step's "
+        f"forward and recompute)", launches["K4 forward"], err_f,
+        time_ms(lambda: K4.state_scan(a, s, 1)),
+        time_ms(lambda: ps.chunk_scan_state_kernel(a, s, 1, interpret=True),
+                reps=5),
+        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
+        max_abs_err_f64=worst_f,
+        launches_counted_in="a phase L train step (48 layers)"))
+
+    shifted = ps.next_decay(a, 1)
+    rev = K4.state_scan(shifted, g, 1, reverse=True)
+    flipped = K4.state_scan(shifted.flip(1), g.flip(1), 1).flip(1)
+    same = torch.equal(rev, flipped)
+    check.true("L K4 reverse walk: not bit-identical to the forward entry "
+               "on flipped copies", same)
+    del flipped
+    plain = ps.chunk_scan_state_kernel(shifted, g, 1, interpret=True,
+                                       reverse=True)
+    # the reverse walk is the forward recurrence on flipped chunks: held
+    # there against float64 at G's bound
+    worst_r = hold_statescan(check, "L K4 reverse walk", rev.flip(1),
+                             plain.flip(1), shifted.flip(1), g.flip(1), bc)
+    err_r = max_abs(rev, plain)
+    del rev, plain
+
+    grads, bw = {}, {}
+    for mode in ("kernel", "interpret"):
+        ar, sr = a.clone().requires_grad_(), s.clone().requires_grad_()
+        K4.launches = K4.reverse_launches = 0
+        y = ops.chunk_scan_state(ar, sr, axis=1, mode=mode)
+        grads[mode] = torch.autograd.grad(y, (ar, sr), g)
+        bw[mode] = (K4.launches, K4.reverse_launches)
+        del y, ar, sr
+    check.true(f"L backward: K4 (forward, reverse) launches {bw}, want "
+               f"(1, 1) in kernel mode and none in interpret mode",
+               bw == {"kernel": (1, 1), "interpret": (0, 0)})
+    bad, worst = statescan_grad_misses(grads, a, s, g, bc)
+    for key, k in bad.items():
+        check.true(f"L backward {key}: {k} elements outside the bound", k == 0)
+    y = K4.state_scan(a, s, 1)
+    del grads
+    rows.append(entry(
+        f"L reverse walk {shape} float32 in place (the backward of "
+        f"c4_statescan)", launches["K4 reverse"], err_r,
+        time_ms(lambda: K4.state_scan(shifted, g, 1, reverse=True)),
+        time_ms(lambda: ps.chunk_scan_state_kernel(
+            shifted, g, 1, interpret=True, reverse=True), reps=5),
+        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
+        max_abs_err_f64=worst_r, bit_identical_to_forward_flipped=same,
+        backward_call_ms=time_ms(
+            lambda: ps.state_scan_grad(a, y, g, 1))[0],
+        launches_counted_in="a phase L train step (48 layers)",
+        forward_launches_in_step=launches["K4 forward"]))
+    del a, s, g, y, shifted
+    return {"states": list(shape), "block": [br, bc],
+            "bit_identical_to_forward_flipped": same,
+            "forward_max_abs_err_f64": worst_f,
+            "reverse_max_abs_err_f64": worst_r,
+            "backward_outside_bound": bad, "backward_max_abs_err": worst}
+
+
+def hold_train_grads(dev, check, cfg) -> dict:
+    """One gradient of the loss (api.make_grad_fn) at phase L's widths
+    and sequence, cut to TRAIN_GRAD_LAYERS layers in float32 (so the
+    modes differ only in the scans' rounding), with carrying decays
+    (:func:`carrying_decays`): kernel mode (K4 forward, recompute and
+    reverse walk) and interpret mode (their plain walks) against ref
+    mode (the oracle differentiated by autograd), each leaf within
+    TRAIN_GRAD_REL of its max |g|."""
+    gcfg = dataclasses.replace(cfg, n_layers=TRAIN_GRAD_LAYERS,
+                               param_dtype="float32", act_dtype="float32")
+    params = M.init_params(gcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 33), dev)
+    carrying_decays(params, gcfg.ssm_chunk, SEED + 34)
+    batch = to_device(SyntheticLMData(gcfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                      SEED + 35).host_batch(0), dev)
+    grad_fn = api.make_grad_fn(gcfg)
+    decays = []
+    out = {}
+    for mode in ("kernel", "interpret", "ref"):
+        with isa.use(mode), Tap(
+                ps, "chunk_scan_state_kernel",
+                lambda args, kw, o: args[0].detach().flatten()) as t4:
+            K4.launches = K4.reverse_launches = 0
+            grads, metrics = grad_fn(params, batch)
+            launches = (K4.launches, K4.reverse_launches)
+        if mode == "kernel":
+            decays = torch.cat(t4.calls[:TRAIN_GRAD_LAYERS])
+            want = (2 * TRAIN_GRAD_LAYERS, TRAIN_GRAD_LAYERS)
+        else:
+            want = (0, 0)
+        check.true(f"L grads {mode} mode: K4 (forward, reverse) launches "
+                   f"{launches}, want {want}", launches == want)
+        out[mode] = (grads, float(metrics["loss"]))
+        del grads, metrics
+    quant = [float(decays.quantile(q)) for q in (0.0, 0.1, 0.5, 0.9, 1.0)]
+    check.true(f"L grads: the chunks' decays {quant} do not carry (median "
+               f"≤ 0.05)", quant[2] > 0.05)
+    ref_grads, ref_loss = out.pop("ref")
+    ratios = {}
+    for mode, (grads, loss) in out.items():
+        ratios[mode] = grad_ratios(grads, ref_grads)
+        bad = {k: v for k, v in ratios[mode].items()
+               if not v <= TRAIN_GRAD_REL}
+        check.true(f"L grads {mode} mode against ref: leaves over "
+                   f"{TRAIN_GRAD_REL} of their max |g|: {bad}", not bad)
+        check.true(f"L grads {mode} mode: loss {loss} is not ref's "
+                   f"{ref_loss} within {TRAIN_GRAD_REL}",
+                   abs(loss - ref_loss) <= TRAIN_GRAD_REL * abs(ref_loss))
+    del out, ref_grads, params, batch
+    return {"layers": TRAIN_GRAD_LAYERS, "dtype": "float32",
+            "seq": TRAIN_SEQ, "batch": TRAIN_BATCH, "bound": TRAIN_GRAD_REL,
+            "decay_quantiles": quant, "loss_ref": ref_loss,
+            "worst_ratio": {m: max(r.values()) for m, r in ratios.items()},
+            "ratio_by_leaf": ratios}
+
+
+def run_phase_m(dev, check, rows):
+    """MoE training on the card at Kimi-K2's reduced config (a full-width
+    MoE train step does not fit one card: Kimi-K2's experts are 16.9 B
+    params a layer): a train step with K7 and K3 against the same step
+    on the oracles, bit for bit; K7's gradient at H's router shape; then
+    the trainer's own entry point with a checkpoint and a resume."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH).reduced(),
+                              capacity_factor=8.0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    state = api.init_train_state(cfg, gen, dev)
+    rng = np.random.default_rng(SEED + 41)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64)).astype(
+        np.int32)).to(dev) for k in ("tokens", "targets")}
+    step_fn = api.make_train_step(cfg)
+    grads_fn = api.make_grad_fn(cfg)
+    out = {}
+    # deterministic scatters and gathers, so both runs sum in one order
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for mode in ("kernel", "ref"):
+            with isa.use(mode):
+                K7.launches = K3.launches = K4.launches = K8.launches = 0
+                grads, _ = grads_fn(state["params"], batch)
+                launches = {"K7": K7.launches, "K3": K3.launches,
+                            "K4": K4.launches, "K8": K8.launches}
+                new_state, metrics = step_fn(state, batch)
+            out[mode] = (grads, new_state, metrics, launches)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n_l = cfg.n_layers
+    check.true(f"M kernel mode: launches {out['kernel'][3]}, want K7 and "
+               f"K3 {2 * n_l} (forward and recompute), no K4 or K8",
+               out["kernel"][3] == {"K7": 2 * n_l, "K3": 2 * n_l, "K4": 0,
+                                    "K8": 0})
+    check.true(f"M ref mode launched {out['ref'][3]}",
+               not any(out["ref"][3].values()))
+    kg, kstate, km, _ = out["kernel"]
+    rg, rstate, rm, _ = out["ref"]
+    grads_same = params_equal(kg, rg)
+    check.true("M: kernel-mode grads are not ref-mode's bit for bit",
+               grads_same)
+    check.true("M: kernel-mode step (loss, grad norm, new state) is not "
+               "ref-mode's bit for bit",
+               torch.equal(km["loss"], rm["loss"])
+               and torch.equal(km["grad_norm"], rm["grad_norm"])
+               and params_equal(kstate, rstate))
+    worst_grad = max(float((a - b).abs().max()) for a, b in
+                     zip(tree_leaves(kg), tree_leaves(rg)))
+    del out, kg, rg, kstate, rstate, state
+
+    # K7's gradient at the router's prefill shape: the scatter of the
+    # oracle's picks, exactly
+    x = torch.from_numpy(np.random.default_rng(SEED + 42).standard_normal(
+        ROUTER_SHAPE, dtype=np.float32)).to(dev).requires_grad_()
+    gv = torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
+        (ROUTER_SHAPE[0], ROUTER_K), dtype=np.float32)).to(dev)
+    K7.launches = 0
+    vals, _ = ops.topk(x, ROUTER_K, mode="kernel")
+    (dx,) = torch.autograd.grad(vals, x, gv)
+    k7_launches = K7.launches
+    _, ridx = ref.topk(tk.pad_to(x.detach(), 512), ROUTER_K)
+    want = torch.zeros_like(x).scatter_(-1, ridx.long(), gv)
+    check.exact("M K7 gradient at (4096, 384) k 8 against the oracle's "
+                "scatter", dx, want)
+    check.true(f"M K7 gradient: {k7_launches} launches, want 1",
+               k7_launches == 1)
+    del x, gv, vals, dx, want
+
+    # train.main on the card: 6 steps with checkpoints, then a
+    # resume to 9
+    import contextlib
+    import io
+    import tempfile
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    texts = []
+    with tempfile.TemporaryDirectory(dir=build) as ckpt:
+        for n in (6, 9):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                final = train.main(
+                    ["--arch", "mamba2-1.3b", "--reduced", "--steps", str(n),
+                     "--batch", "4", "--seq", "64", "--ckpt-dir", ckpt,
+                     "--ckpt-every", "3", "--log-every", "3"])
+            texts.append(buf.getvalue())
+    print("M train.main:\n" + "".join(texts), flush=True)
+    check.true("M train.main: 'resumed from step 6' not printed on the "
+               "resume", "resumed from step 6" in texts[1])
+    check.true(f"M train.main: final loss {final} not finite",
+               math.isfinite(final))
+    print(json.dumps({"train_moe": {
+        "phase": "M", "card": CARD, "model": MOE_ARCH,
+        "reduced": ["reduced() config (2 layers, d_model 64, 8 experts "
+                    "top-2): Kimi-K2's experts are 16.9 B params a layer"],
+        "grads_bit_identical_kernel_vs_ref": grads_same,
+        "max_abs_grad_diff": worst_grad,
+        "loss": float(km["loss"]), "grad_norm": float(km["grad_norm"]),
+        "k7_grad_router_shape": list(ROUTER_SHAPE),
+        "train_main_lines": [ln for t in texts for ln in t.splitlines()]}}),
+        flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -2111,7 +2668,8 @@ def main() -> int:
                         ("E", run_phase_e), ("F", run_phase_f),
                         ("G", run_phase_g), ("H", run_phase_h),
                         ("I", run_phase_i), ("J", run_phase_j),
-                        ("K", run_phase_k)):
+                        ("K", run_phase_k), ("L", run_phase_l),
+                        ("M", run_phase_m)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

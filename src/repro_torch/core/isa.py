@@ -49,6 +49,22 @@ def _on_cuda(operands) -> bool:
     return any(isinstance(o, torch.Tensor) and o.is_cuda for o in operands)
 
 
+def check_grad(name: str, mode: str, operands: Sequence[Any],
+               differentiable: bool = False) -> None:
+    """No silent loss of a gradient: a ``kernel`` or ``interpret``
+    dispatch of an instruction without a backward raises while grad mode
+    is on and an operand requires grad (its output would come out
+    detached). The oracle (``ref``) is differentiated by autograd."""
+    if (mode in ("kernel", "interpret") and not differentiable
+            and torch.is_grad_enabled()
+            and any(isinstance(o, torch.Tensor) and o.requires_grad
+                    for o in operands)):
+        raise ValueError(
+            f"{name}: its {mode} path has no backward, and an operand "
+            f"requires grad; call it under torch.no_grad(), detach the "
+            f"operand, or use mode='ref'")
+
+
 def resolve_auto(mode: str, operands: Sequence[Any] = ()) -> str:
     """The single owner of the 'auto' dispatch rule: ``kernel`` iff the
     caller placed its tensors on a CUDA device, the oracle for CPU
@@ -144,6 +160,10 @@ class Instruction:
     # programs (Registry.fuse). None → not fusable. The oracle convention
     # for fusion is ``ref(*vectors, *scalars)``.
     template: Optional[Any] = None
+    # whether the kernel path carries gradients (a torch.autograd.Function
+    # with a backward); without one, check_grad refuses operands that
+    # require grad on the kernel and interpret paths
+    differentiable: bool = False
 
     def __post_init__(self):
         if not callable(self.ref):
@@ -217,6 +237,7 @@ class FusedProgram:
         if mode not in Registry.MODES:
             raise ValueError(f"mode must be one of {Registry.MODES}")
         mode = resolve_auto(mode, operands)
+        check_grad(self.name, mode, operands)
         if mode == "ref":
             # ref composes oracles on the original shapes; reject exactly
             # the operand lists the kernel path (validated inside
@@ -348,6 +369,7 @@ class Registry:
                 f"({instr.spec.scalar_in} scalar + {instr.spec.vector_in} "
                 f"vector), got {len(operands)}")
         m = self._resolve(instr, mode, operands)
+        check_grad(name, m, operands, instr.differentiable)
         if m == "ref":
             return instr.ref(*operands, **kw)
         return instr.kernel(*operands, interpret=(m == "interpret"), **kw)

@@ -120,10 +120,30 @@ def exclusive_prefix_sum(x, mode=None):
 # c4_chunkscan (affine carry — SSD inter-chunk recurrence)
 # ---------------------------------------------------------------------------
 
+class ChunkScanFn(torch.autograd.Function):
+    """c4_chunkscan's kernel path under autograd: the forward is K4 (or
+    its plain walk), the backward K4's reverse walk
+    (:func:`prefix_scan.chunk_scan_grad`). a, b: (rows, cols)."""
+
+    @staticmethod
+    def forward(ctx, a, b, interpret: bool):
+        y = _ps.chunk_scan_kernel(a, b, interpret=interpret)
+        ctx.save_for_backward(a, y)
+        ctx.interpret = interpret
+        ctx.dtypes = (a.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        a, y = ctx.saved_tensors
+        da, db = _ps.chunk_scan_grad(a, y, g.contiguous(), ctx.interpret)
+        return da.to(ctx.dtypes[0]), db.to(ctx.dtypes[1]), None
+
+
 def _chunkscan_kernel(a, b, *, interpret: bool = False):
     a2, lead = _as_rows(a, a.shape[-1])
     b2, _ = _as_rows(b, b.shape[-1])
-    out = _ps.chunk_scan_kernel(a2, b2, interpret=interpret)
+    out = ChunkScanFn.apply(a2, b2, interpret)
     return out.reshape(*lead, a.shape[-1])
 
 
@@ -133,12 +153,36 @@ isa.register(Instruction(
     ref=ref.chunk_scan,
     kernel=_chunkscan_kernel,
     pipeline_depth=2,
+    differentiable=True,
     doc="carried affine scan y=a·y'+b (Mamba2 SSD state recurrence)",
 ))
 
 
 def chunk_scan(a, b, mode=None):
     return isa.call("c4_chunkscan", a, b, mode=mode)
+
+
+class StateScanFn(torch.autograd.Function):
+    """c4_statescan's kernel path under autograd: the forward is K4's
+    state-scan entry (or its plain walk), the backward one reverse walk
+    of the same entry on the output's gradient where it lies
+    (:func:`prefix_scan.state_scan_grad`)."""
+
+    @staticmethod
+    def forward(ctx, a, states, axis: int, interpret: bool):
+        y = _ps.chunk_scan_state_kernel(a, states, axis, interpret=interpret)
+        ctx.save_for_backward(a, y)
+        ctx.axis, ctx.interpret = axis, interpret
+        ctx.dtypes = (a.dtype, states.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        a, y = ctx.saved_tensors
+        da, ds = _ps.state_scan_grad(a, y, g.contiguous(), ctx.axis,
+                                     ctx.interpret)
+        return (da.sum_to_size(a.shape).to(ctx.dtypes[0]),
+                ds.to(ctx.dtypes[1]), None, None)
 
 
 def _chunkscan_state_kernel(a, b, axis: int = 1, *, interpret: bool = False):
@@ -148,7 +192,7 @@ def _chunkscan_state_kernel(a, b, axis: int = 1, *, interpret: bool = False):
     # where they lie, walking the same rows in the same blocks. A
     # negative axis counts on the states, as the reference's kernel path
     # does.
-    return _ps.chunk_scan_state_kernel(a, b, axis, interpret=interpret)
+    return StateScanFn.apply(a, b, axis, interpret)
 
 
 isa.register(Instruction(
@@ -157,6 +201,7 @@ isa.register(Instruction(
     ref=ref.chunk_scan_state,
     kernel=_chunkscan_state_kernel,
     pipeline_depth=2,
+    differentiable=True,
     doc="c4_chunkscan with shared per-head decay (SSD chunk states)",
 ))
 
@@ -169,7 +214,28 @@ def chunk_scan_state(a, b, axis: int = 1, mode=None):
 # c5_topk
 # ---------------------------------------------------------------------------
 
-def _topk_kernel(x, k: int, *, interpret: bool = False):
+class TopKFn(torch.autograd.Function):
+    """c5_topk under autograd: the forward is ``impl(x, k)`` (K7, its
+    plain network or the oracle), the backward ``lax.top_k``'s VJP: the
+    values' gradient scattered to the picked indices (ties go to the
+    index the forward picked), none to the indices."""
+
+    @staticmethod
+    def forward(ctx, x, k: int, impl):
+        vals, idx = impl(x, k)
+        ctx.mark_non_differentiable(idx)
+        ctx.save_for_backward(idx)
+        ctx.shape = x.shape
+        return vals, idx
+
+    @staticmethod
+    def backward(ctx, g_vals, g_idx):
+        (idx,) = ctx.saved_tensors
+        dx = g_vals.new_zeros(ctx.shape).scatter_(-1, idx.long(), g_vals)
+        return dx, None, None
+
+
+def _topk_rows(x, k: int, *, interpret: bool = False):
     # rows of n stand for rows of the next power of two padded with the
     # dtype's minimum (never -inf), as the reference pads them: K7 reads
     # them in place, the plain network gets the padded copy
@@ -179,12 +245,24 @@ def _topk_kernel(x, k: int, *, interpret: bool = False):
     return (vals.reshape(*lead, k), idx.reshape(*lead, k))
 
 
+def _topk_kernel(x, k: int, *, interpret: bool = False):
+    return TopKFn.apply(x, k, lambda x_, k_: _topk_rows(
+        x_, k_, interpret=interpret))
+
+
+def _topk_ref(x, k: int):
+    """The oracle under autograd (``ref.topk`` gathers the values by
+    their bits, which carries no gradient)."""
+    return TopKFn.apply(x, k, ref.topk)
+
+
 isa.register(Instruction(
     name="c5_topk",
     spec=OperandSpec(itype="I'", scalar_in=1, vector_in=1, vector_out=2),
-    ref=ref.topk,
+    ref=_topk_ref,
     kernel=_topk_kernel,
     pipeline_depth=8,
+    differentiable=True,
     doc="descending key/payload sort → top-k values + indices (MoE router)",
 ))
 
@@ -225,6 +303,7 @@ def flash_attention(q, k, v, causal=True, scale=None, mode=None):
     # hence manual dispatch here rather than isa.call's 2-operand check.
     # 'auto' follows the tensors, as isa.resolve_auto does.
     mode = isa.resolve_auto(mode or isa.registry.mode, (q, k, v))
+    isa.check_grad("c6_flashattn", mode, (q, k, v))
     if mode == "ref":
         return ref.flash_attention(q, k, v, causal=causal, scale=scale)
     return _flashattn_kernel(q, k, v, causal=causal, scale=scale,

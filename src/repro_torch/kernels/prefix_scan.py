@@ -121,11 +121,15 @@ def prefix_sum_plain(x: torch.Tensor, bc: int) -> torch.Tensor:
     return (hs + carry[:, :, None]).reshape(rows, -1)[:, :cols]
 
 
-def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor,
-                     bc: int) -> torch.Tensor:
+def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor, bc: int,
+                     reverse: bool = False) -> torch.Tensor:
     """K4's blocked walk in torch eager: the affine Hillis–Steele inside
     each block, then y = A·carry + B with the carry = the previous
-    block's last y (y before the row's first block = 0)."""
+    block's last y (y before the row's first block = 0). ``reverse``
+    walks each row from its last column, as K4's ``REVERSE`` does: the
+    same walk on the columns in reverse order."""
+    if reverse:
+        return chunk_scan_plain(a.flip(1), b.flip(1), bc).flip(1)
     rows, cols = a.shape
     dt = torch.promote_types(a.dtype, b.dtype)
     acum, bcum = _affine_hs(_blocks(a.to(dt), bc, 1), _blocks(b.to(dt), bc, 0))
@@ -169,13 +173,18 @@ def state_scan_map(a: torch.Tensor, states: torch.Tensor, axis: int):
 
 
 def state_scan_plain(a: torch.Tensor, states: torch.Tensor,
-                     axis: int) -> torch.Tensor:
+                     axis: int, reverse: bool = False) -> torch.Tensor:
     """K4's state-scan entry in torch eager: the rows of
     :func:`state_scan_map`'s groups, with their decays gathered by the
     kernel's own index, through :func:`chunk_scan_plain` at the block
-    K4 uses, and back into the states' layout."""
+    K4 uses, and back into the states' layout. ``reverse`` walks the
+    chunks from the last one (states and decays), as ``REVERSE`` does."""
     dt = torch.promote_types(a.dtype, states.dtype)
     a, w = state_scan_map(a, states, axis)
+    if reverse:
+        ax = axis % states.ndim
+        a = a.flip(ax) if ax < a.ndim else a
+        return state_scan_plain(a, states.flip(ax), axis).flip(ax)
     outer, cols, a_in, rows = w["outer"], w["cols"], w["a_in"], w["rows"]
     if states.numel() == 0:
         return torch.empty(states.shape, dtype=dt, device=states.device)
@@ -218,7 +227,10 @@ def _scan_block(a, b, carry, last):
 
 @gluon.jit
 def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
-                  BR: gl.constexpr, BC: gl.constexpr, SCAN: gl.constexpr):
+                  BR: gl.constexpr, BC: gl.constexpr, SCAN: gl.constexpr,
+                  REVERSE: gl.constexpr):
+    # REVERSE walks each row from its last column: step c of the walk
+    # loads and stores column cols-1-c, in the same layout and order
     r = (gl.program_id(0).to(gl.int64) * BR
          + gl.arange(0, BR, layout=gl.SliceLayout(1, SCAN)).to(gl.int64))
     cs = gl.arange(0, BC, layout=gl.SliceLayout(0, SCAN))
@@ -230,6 +242,8 @@ def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
     for c0 in range(0, cols, BC):
         c = gl.expand_dims(c0 + cs, 0)
         m = gl.expand_dims(r < rows, 1) & (c < cols)
+        if REVERSE:
+            c = cols - 1 - c
         a = gl.load(arow + c, mask=m, other=1).to(O.dtype.element_ty)
         b = gl.load(brow + c, mask=m, other=0).to(O.dtype.element_ty)
         y, carry = _scan_block(a, b, carry, last)
@@ -239,11 +253,13 @@ def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
 @gluon.jit
 def k4_state_scan(A, S, O, n_rb, rows, cols, inner, a_in, a_div, a_outer,
                   a_col, BR: gl.constexpr, BC: gl.constexpr,
-                  SCAN: gl.constexpr, MOVE: gl.constexpr):
+                  SCAN: gl.constexpr, MOVE: gl.constexpr,
+                  REVERSE: gl.constexpr):
     # group g = (outer index o, decay index ai): `rows` contiguous payload
     # elements, its columns the chunks at stride `inner`. Loads and stores
     # go along the rows (MOVE); the scan runs in SCAN, k4_chunk_scan's
-    # layout, so each row is combined in k4_chunk_scan's order.
+    # layout, so each row is combined in k4_chunk_scan's order. REVERSE
+    # maps the chunk index as k4_chunk_scan's does, decays included.
     pid = gl.program_id(0)
     g = pid // n_rb
     o = g // a_in
@@ -258,12 +274,17 @@ def k4_state_scan(A, S, O, n_rb, rows, cols, inner, a_in, a_div, a_outer,
     for c0 in range(0, cols, BC):
         c = c0 + cmove
         m = gl.expand_dims(r < rows, 1) & gl.expand_dims(c < cols, 0)
+        if REVERSE:
+            c = cols - 1 - c
         off = (sbase + gl.expand_dims(c.to(gl.int64), 0) * inner
                + gl.expand_dims(r, 1))
         b = gl.load(S + off, mask=m, other=0).to(O.dtype.element_ty)
         b = gl.convert_layout(b, SCAN)
         ca = c0 + cscan
-        ac = gl.load(A + abase + ca.to(gl.int64) * a_col, mask=ca < cols,
+        ma = ca < cols
+        if REVERSE:
+            ca = cols - 1 - ca
+        ac = gl.load(A + abase + ca.to(gl.int64) * a_col, mask=ma,
                      other=1).to(O.dtype.element_ty)
         a, b = gl.broadcast(gl.expand_dims(ac, 0), b)
         y, carry = _scan_block(a, b, carry, last)
@@ -393,12 +414,22 @@ class PrefixSumKernel:
 
 
 class ChunkScanKernel:
-    """The K4 wrapper. ``launches`` counts kernel launches, and only those."""
+    """The K4 wrapper. ``launches`` counts the forward walk's kernel
+    launches and ``reverse_launches`` the reverse walk's (the backward
+    of a scan), and only those."""
 
     def __init__(self):
         self.launches = 0
+        self.reverse_launches = 0
 
-    def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def _count(self, reverse: bool) -> None:
+        if reverse:
+            self.reverse_launches += 1
+        else:
+            self.launches += 1
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor,
+                 reverse: bool = False) -> torch.Tensor:
         dt = torch.promote_types(a.dtype, b.dtype)
         if not dt.is_floating_point:
             raise ValueError(f"K4 scans floating-point rows, got {dt}")
@@ -413,16 +444,18 @@ class ChunkScanKernel:
         with torch.cuda.device(a.device):
             _gluon_kernels().k4_chunk_scan[(-(-rows // br),)](
                 a, b, out, rows, cols, a.stride(0), b.stride(0), BR=br,
-                BC=bc, SCAN=_layout(scan_layout(br, bc, nw)), num_warps=nw)
-        self.launches += 1
+                BC=bc, SCAN=_layout(scan_layout(br, bc, nw)),
+                REVERSE=reverse, num_warps=nw)
+        self._count(reverse)
         return out
 
     def state_scan(self, a: torch.Tensor, states: torch.Tensor,
-                   axis: int) -> torch.Tensor:
+                   axis: int, reverse: bool = False) -> torch.Tensor:
         """The scan along ``axis`` of ``states`` with the decay ``a`` at
         its own rank (the states' leading dims), in one launch of
         ``k4_state_scan`` on the states where they lie; the output in
-        their layout (see :func:`state_scan_map`)."""
+        their layout (see :func:`state_scan_map`). ``reverse`` walks the
+        chunks from the last one."""
         dt = torch.promote_types(a.dtype, states.dtype)
         if not dt.is_floating_point:
             raise ValueError(f"K4 scans floating-point rows, got {dt}")
@@ -442,8 +475,8 @@ class ChunkScanKernel:
                 w["a_div"], w["a_outer"], w["a_col"], BR=br, BC=bc,
                 SCAN=_layout(scan_layout(br, bc, nw)),
                 MOVE=_layout(move_layout(br, bc, nw)),
-                num_warps=nw)
-        self.launches += 1
+                REVERSE=reverse, num_warps=nw)
+        self._count(reverse)
         return out
 
 
@@ -461,23 +494,79 @@ def prefix_sum_kernel(x: torch.Tensor, interpret: bool = False) -> torch.Tensor:
 
 
 def chunk_scan_kernel(a: torch.Tensor, b: torch.Tensor,
-                      interpret: bool = False) -> torch.Tensor:
+                      interpret: bool = False,
+                      reverse: bool = False) -> torch.Tensor:
     """Affine carried scan along the last axis; a, b same 2D shape. K4 on
-    CUDA tensors, or its blocked walk in torch (``interpret=True``)."""
+    CUDA tensors, or its blocked walk in torch (``interpret=True``);
+    ``reverse`` scans each row from its last column."""
     if a.shape != b.shape:
         raise ValueError("a and b must match")
     if interpret:
-        return chunk_scan_plain(a, b, block_shape(*a.shape)[1])
-    return K4(a, b)
+        return chunk_scan_plain(a, b, block_shape(*a.shape)[1], reverse)
+    return K4(a, b, reverse)
 
 
 def chunk_scan_state_kernel(a: torch.Tensor, states: torch.Tensor,
-                            axis: int = 1,
-                            interpret: bool = False) -> torch.Tensor:
+                            axis: int = 1, interpret: bool = False,
+                            reverse: bool = False) -> torch.Tensor:
     """The affine scan of ``states`` along ``axis`` (counted on the
     states) with the decay ``a`` at the states' leading dims: K4's
     state-scan entry on CUDA tensors, reading the states in place, or
-    its walk in torch (``interpret=True``)."""
+    its walk in torch (``interpret=True``); ``reverse`` scans from the
+    last chunk."""
     if interpret:
-        return state_scan_plain(a, states, axis)
-    return K4.state_scan(a, states, axis)
+        return state_scan_plain(a, states, axis, reverse)
+    return K4.state_scan(a, states, axis, reverse)
+
+
+# ---------------------------------------------------------------------------
+# the adjoint: K4's reverse walk
+# ---------------------------------------------------------------------------
+
+def next_decay(a: torch.Tensor, ax: int) -> torch.Tensor:
+    """``a[c+1]`` at column c along ``ax`` (0 at the last column): the
+    decay of the adjoint scan, built at ``a``'s own rank."""
+    n = a.shape[ax]
+    return torch.cat([a.narrow(ax, 1, n - 1),
+                      a.new_zeros(a.shape[:ax] + (1,) + a.shape[ax + 1:])],
+                     dim=ax)
+
+
+def _prev_product(lam: torch.Tensor, y: torch.Tensor, ax: int,
+                  keep: int) -> torch.Tensor:
+    """``Σ λ[c]·y[c−1]`` (y[−1] = 0) over the dims from ``keep`` on, at
+    every c along ``ax``: the gradient of the decays."""
+    n = lam.shape[ax]
+    prod = lam.narrow(ax, 1, n - 1) * y.narrow(ax, 0, n - 1)
+    prod = prod.sum(dim=tuple(range(keep, lam.ndim))) if keep < lam.ndim \
+        else prod
+    zero = prod.new_zeros(prod.shape[:ax] + (1,) + prod.shape[ax + 1:]) \
+        if ax < prod.ndim else None
+    return prod if zero is None else torch.cat([zero, prod], dim=ax)
+
+
+def chunk_scan_grad(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                    interpret: bool = False):
+    """(da, db) of ``y = chunk_scan(a, b)`` (2D, along the columns) for
+    the output's gradient ``g``: the adjoint λ[c] = g[c] + a[c+1]·λ[c+1]
+    is the affine scan run from the last column, one reverse walk of K4
+    (or its plain walk); db = λ, da[c] = λ[c]·y[c−1]."""
+    lam = chunk_scan_kernel(next_decay(a, 1), g, interpret, reverse=True)
+    return _prev_product(lam, y, 1, 2), lam
+
+
+def state_scan_grad(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
+                    axis: int, interpret: bool = False):
+    """(da, dstates) of ``y = chunk_scan_state(a, states, axis)`` (the
+    axis counted on the states, ``a`` at the states' leading dims, as
+    :func:`state_scan_map` expands it) for the output's gradient ``g``:
+    one reverse walk of K4's state-scan entry on ``g`` where it lies,
+    with the shifted decay at ``a``'s rank; da[c] = Σ λ[c]·y[c−1] over
+    the states' payload dims (a torch reduction)."""
+    nd = y.ndim
+    ax = axis % nd
+    a = a.expand(y.shape[:a.ndim])
+    shifted_a = next_decay(a, ax) if ax < a.ndim else a
+    lam = chunk_scan_state_kernel(shifted_a, g, axis, interpret,
+                                  reverse=True)
+    return _prev_product(lam, y, ax, a.ndim), lam

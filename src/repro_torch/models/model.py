@@ -1,5 +1,5 @@
-"""The LM: blocks, the stack of layers, prefill and decode
-(``src/repro/models/model.py``, serving side, on one device).
+"""The LM: blocks, the stack of layers, the loss, prefill and decode
+(``src/repro/models/model.py``, on one device).
 
 Params and caches are nested dicts of tensors in the reference's layout:
 layer params stacked on a leading (L,) axis; the cache as (L, B, T, KV,
@@ -11,26 +11,44 @@ parallel, averaged). The reference's ``lax.scan`` over layers is a
 Python loop over the stacked leaves. :class:`LM` gives the functions an
 ``nn.Module`` face.
 
-Not ported yet: the training side (``loss_fn``, remat; ROADMAP Queue 1
-item 14).
+Training: :func:`loss_fn` runs ``forward(train=True)``, where each block
+is rematerialised by ``cfg.remat`` (:func:`_remat`, the counterparts of
+the reference's ``jax.checkpoint`` policies), and is differentiated by
+autograd. The instructions on its path carry their gradients on the
+kernel path too (``kernels/ops.py``: K4 forward and its reverse walk, K7
+with the scatter of ``lax.top_k``'s VJP); one without a backward raises
+rather than drop a gradient (``core/isa.check_grad``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import isa
 
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import embed_tokens, mlp, rmsnorm, unembed
+from .layers import cross_entropy, embed_tokens, mlp, rmsnorm, unembed
 from .params import DTYPES, init_params, tree_map
 
 
 def _layer(tree: dict, i: int) -> dict:
     """Layer i's params (or cache) from the stacked (L, ...) leaves."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _layers(tree: dict, n: int) -> list[dict]:
+    """Every layer's params as views of the stacked leaves, through one
+    ``unbind`` a leaf: its backward stacks the layers' gradients once
+    (indexing each layer would add a zero-filled stacked gradient per
+    layer)."""
+    split = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda parts: parts[i], split) for i in range(n)]
 
 
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
@@ -67,10 +85,49 @@ def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     return _ffn(cfg, p, x)
 
 
-def stack(cfg: ModelConfig, layer_params: dict, x: torch.Tensor, positions):
+# the non-batched matmuls: what ``dots_with_no_batch_dims_saveable`` keeps
+# (an einsum with batch dims runs as bmm, whose output is recomputed)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under ``cfg.remat``: ``none`` keeps every activation;
+    ``full`` saves only the block's inputs and recomputes the block in
+    the backward (``nothing_saveable``); ``dots`` also saves the outputs
+    of the non-batched matmuls (``dots_with_no_batch_dims_saveable``).
+    The recompute runs under the dispatch mode of the forward: autograd
+    runs a CUDA backward on a thread of its own, where the registry's
+    thread-local mode would be the default."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+
+    def rematerialised(*args):
+        mode = isa.registry.mode
+
+        def under_mode(*a):
+            with isa.use(mode):
+                return fn(*a)
+        return _ckpt.checkpoint(under_mode, *args, use_reentrant=False, **kw)
+    return rematerialised
+
+
+def stack(cfg: ModelConfig, layer_params: dict, x: torch.Tensor, positions,
+          train: bool = False):
+    fn = functools.partial(block, cfg)
+    if train:
+        fn = _remat(cfg, fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = block(cfg, _layer(layer_params, i), x, positions)
+    for p in _layers(layer_params, cfg.n_layers):
+        x, a = fn(p, x, positions)
         aux = aux + a
     return x, aux / cfg.n_layers
 
@@ -83,18 +140,42 @@ def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, train: bool = False):
-    """The stack's final hidden states (B, S, D) and the MoE aux loss."""
-    if train:
-        raise NotImplementedError("the training side (loss_fn, remat) is "
-                                  "not ported yet (ROADMAP Queue 1 item 14)")
+    """The stack's final hidden states (B, S, D) and the MoE aux loss;
+    ``train`` rematerialises each block by ``cfg.remat``."""
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    x, aux = stack(cfg, params["layers"], x, positions)
+    x, aux = stack(cfg, params["layers"], x, positions, train)
     return rmsnorm(x, params["final_norm"]), aux
 
 
 def _unembed_w(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            aux_weight: float = 0.01):
+    """Mean next-token cross-entropy (+ z-loss, + ``aux_weight`` × the
+    MoE load-balance loss). Returns (loss, metrics {ce, z_loss, loss,
+    moe_aux}). With ``cfg.ce_chunk`` dividing the sequence, the unembed
+    and CE run chunk by chunk over the sequence (no (B, S, V) logits)."""
+    x, aux = forward(cfg, params, batch, train=True)
+    w = _unembed_w(cfg, params)
+    s = x.shape[1]
+    if cfg.ce_chunk and s % cfg.ce_chunk == 0:
+        nc = s // cfg.ce_chunk
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, s, cfg.ce_chunk):
+            logits = unembed(w, x[:, c:c + cfg.ce_chunk], cfg.vocab)
+            l, _ = cross_entropy(logits, batch["targets"][:, c:c + cfg.ce_chunk])
+            tot = tot + l
+        loss = tot / nc
+        metrics = {"ce": loss, "z_loss": torch.zeros_like(loss)}
+    else:
+        logits = unembed(w, x, cfg.vocab)
+        loss, metrics = cross_entropy(logits, batch["targets"])
+    loss = loss + aux_weight * aux
+    metrics.update(loss=loss, moe_aux=aux)
+    return loss, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -230,17 +311,17 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict):
 # ---------------------------------------------------------------------------
 
 class _Tree(nn.Module):
-    """A nested dict of tensors as frozen parameters (leaves) and
-    submodules (sub-dicts), under the dict's own keys."""
+    """A nested dict of tensors as parameters (leaves; trainable or
+    frozen) and submodules (sub-dicts), under the dict's own keys."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, _Tree(v))
+                self.add_module(k, _Tree(v, trainable))
             else:
-                self.register_parameter(k, nn.Parameter(v,
-                                                        requires_grad=False))
+                self.register_parameter(k, nn.Parameter(
+                    v, requires_grad=trainable))
 
     def as_dict(self) -> dict:
         return {**self._parameters,
@@ -253,9 +334,10 @@ class LM(_Tree):
     weights carried with ``params_from_numpy`` map onto it directly."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 generator: torch.Generator | None = None, device="cuda"):
+                 generator: torch.Generator | None = None, device="cuda",
+                 trainable: bool = False):
         super().__init__(params if params is not None
-                         else init_params(cfg, generator, device))
+                         else init_params(cfg, generator, device), trainable)
         self.cfg = cfg
 
     @property
@@ -263,8 +345,8 @@ class LM(_Tree):
         """The params as the nested dict the functions take."""
         return self.as_dict()
 
-    def forward(self, batch: dict):
-        return forward(self.cfg, self.params, batch)
+    def forward(self, batch: dict, train: bool = False):
+        return forward(self.cfg, self.params, batch, train)
 
     def prefill(self, batch: dict):
         return prefill(self.cfg, self.params, batch)

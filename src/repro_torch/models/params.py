@@ -164,10 +164,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return tree_map(mk, param_specs(cfg))
 
 
-def _from_numpy(arr) -> torch.Tensor:
+def tensor_from_numpy(arr) -> torch.Tensor:
     arr = np.array(arr)             # a writable copy (JAX's are read-only)
-    # bf16 leaves arrive as ml_dtypes.bfloat16 arrays, which torch cannot
-    # read: carry their bits
+    # bf16 leaves arrive as numpy arrays of JAX's bfloat16 extension
+    # dtype, which torch cannot read: carry their bits
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
@@ -185,7 +185,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         raise ValueError(f"param tree differs: got {got}, want {want}")
 
     def carry(spec: ParamSpec, arr) -> torch.Tensor:
-        t = _from_numpy(arr)
+        t = tensor_from_numpy(arr)
         if tuple(t.shape) != spec.shape or t.dtype != _dtype(cfg, spec):
             raise ValueError(f"leaf {tuple(t.shape)} {t.dtype} != spec "
                              f"{spec.shape} {_dtype(cfg, spec)}")

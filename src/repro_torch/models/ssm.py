@@ -13,9 +13,10 @@ Decode is O(1): a (B, H, P, N) state update per token.
 The reference's sharding constraints (``constrain``) are dropped on one
 device. Its ``preferred_element_type=float32`` products on bf16
 operands (``ssd_bf16``) become float32 products of the operands cast to
-float32, which is exact. The (B, C, Q, Q, H) intra-chunk tensors are
-built in place, one at a time: at Mamba2-1.3B's widths and 4 × 8192
-tokens each is 2.15 GB in float32.
+float32, which is exact. For serving, the (B, C, Q, Q, H) intra-chunk
+tensors are built in place, one at a time: at Mamba2-1.3B's widths and
+4 × 8192 tokens each is 2.15 GB in float32. Under grad (training) the
+same ops run out of place, with the same values.
 """
 from __future__ import annotations
 
@@ -100,16 +101,26 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     cum = torch.cumsum(dtac, dim=2)                        # (B,C,Q,H)
     # intra-chunk (quadratic within chunk). The reference's double where:
     # the upper triangle of seg is zeroed before exp, so exp never sees
-    # its large positive values, then the decay is zeroed there (in
-    # place here, the same values)
+    # its large positive values, then the decay is zeroed there. Two
+    # forms of the same ops in the same order, so the same bits: in place
+    # for serving (one (B,C,Q,Q,H) tensor alive at a time), out of place
+    # under grad, where autograd keeps what exp and the products saved
+    tracked = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (u, *p.values()))
     upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
                                    device=u.device))[None, None, :, :, None]
     decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,C,Q,Q,H) i-j
-    decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
+    if tracked:
+        decay = decay.masked_fill(upper, 0.0).exp().masked_fill(upper, 0.0)
+    else:
+        decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
     decay = decay.to(cdt)
     g = torch.einsum("bcin,bcjn->bcij", ccc.float(), bcc.float()).to(cdt)
     # w_intra = g·decay·dt_j, (B,C,Q,Q,H): the only large intermediate
-    w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
+    if tracked:
+        w_intra = decay * g[..., None] * dtc[:, :, None]
+    else:
+        w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
     del decay, g
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(), xc.float())
     del w_intra

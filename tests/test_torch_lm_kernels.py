@@ -258,3 +258,50 @@ def test_generate_kernel_path_against_plain_path(cuda):
     assert torch.equal(got, want)
     err = float((logits - plain).abs().max() / plain.abs().max())
     assert err <= 1e-4, err
+
+
+# ---------------------------------------------------------------------------
+# under autograd on the card: K7's gradient, and a train step through the
+# kernels against the oracles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,k", [((4096, 384), 8), ((4, 384), 8),
+                                     ((64, 40), 40)])
+def test_k7_grad_is_the_scatter_of_the_oracle(cuda, shape, k):
+    x = keys(shape, torch.float32, 3, cuda).requires_grad_()
+    g = keys((shape[0], k), torch.float32, 4, cuda)
+    tk.K7.launches = 0
+    vals, idx = ops.topk(x, k, mode="kernel")
+    assert tk.K7.launches == 1
+    (got,) = torch.autograd.grad(vals, x, g)
+    _, want_idx = ref.topk(x.detach(), k)
+    want = torch.zeros_like(x).scatter_(-1, want_idx.long(), g)
+    assert torch.equal(got, want)
+    (plain,) = torch.autograd.grad(ops.topk(x, k, mode="interpret")[0], x, g)
+    assert torch.equal(got, plain)
+
+
+def test_kimi_train_step_kernel_is_ref_bit_for_bit(cuda):
+    # K7 and K3 are exact against their oracles, so the grads are too
+    from repro_torch.launch import api
+    from repro_torch.models import params as tparams
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = dataclasses.replace(get_config("kimi_k2_1t").reduced(),
+                              capacity_factor=8.0)
+    params = tparams.init_params(cfg, torch.Generator(device=cuda)
+                                 .manual_seed(0), cuda)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32))
+                                 .astype(np.int32)).to(cuda)
+             for k in ("tokens", "targets")}
+    grads = {}
+    for mode in ("kernel", "ref"):
+        tk.K7.launches = K3.launches = 0
+        with isa.use(mode):
+            grads[mode], _ = api.make_grad_fn(cfg)(params, batch)
+        # remat full: each layer's router runs twice (forward and the
+        # recompute, which keeps the forward's mode on autograd's thread)
+        want = 2 * cfg.n_layers if mode == "kernel" else 0
+        assert tk.K7.launches == K3.launches == want
+    for a, b in zip(tree_leaves(grads["kernel"]), tree_leaves(grads["ref"])):
+        assert torch.equal(a, b)

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import repro.kernels  # noqa: F401 — registers the JAX ISA
+import repro_torch.core.isa
 import repro_torch.kernels  # noqa: F401 — registers the port's ISA
 from repro.kernels import ops as jops
 from repro.kernels import prefix_scan as jps
@@ -309,6 +310,59 @@ def broken_carries(good: torch.Tensor, bc: int) -> list[torch.Tensor]:
     return [reset, zeros]
 
 
+def broken_state_scan_grad(kind):
+    """c4_statescan's backward with one fault: the adjoint's carry
+    dropped, da dropped, or the reverse walk on the unshifted decay."""
+    real = ps.state_scan_grad
+
+    def carry_dropped(a, y, g, axis, interpret=False):
+        return real(torch.zeros_like(a), y, g, axis, interpret)
+
+    def da_dropped(a, y, g, axis, interpret=False):
+        da, ds = real(a, y, g, axis, interpret)
+        return torch.zeros_like(da), ds
+
+    def unshifted(a, y, g, axis, interpret=False):
+        lam = ps.chunk_scan_state_kernel(a, g, axis, interpret, reverse=True)
+        return ps._prev_product(lam, y, axis % y.ndim, a.ndim), lam
+
+    return {"carry dropped": carry_dropped, "da dropped": da_dropped,
+            "unshifted decay": unshifted}[kind]
+
+
+def statescan_grads(smoke, seed, modes=("interpret", "ref")):
+    a, s = smoke.ssd_inputs(seed, (2, 12, 4), (5, 16), "cpu")
+    g = smoke.ssd_inputs(seed + 1, (2, 12, 4), (5, 16), "cpu")[1]
+    grads = {}
+    for mode in modes:
+        ar, sr = a.clone().requires_grad_(), s.clone().requires_grad_()
+        y = ops.chunk_scan_state(ar, sr, axis=1, mode=mode)
+        grads[mode] = torch.autograd.grad(y, (ar, sr), g)
+    return grads, a, s, g, ps.block_shape(s.numel() // 12, 12)[1]
+
+
+def test_smoke_statescan_grad_hold_passes_the_backward(smoke):
+    # phase L's hold of c4_statescan's backward: the plain walk's
+    # gradients and the oracle's autograd both within its bounds
+    grads, a, s, g, bc = statescan_grads(smoke, 24)
+    bad, worst = smoke.statescan_grad_misses(grads, a, s, g, bc)
+    assert set(bad) == {"interpret ds", "interpret da", "ref ds", "ref da",
+                        "|ds interpret - ref|"}
+    assert not any(bad.values()), bad
+    assert max(worst.values()) < 1e-4
+
+
+@pytest.mark.parametrize("kind", ["carry dropped", "da dropped",
+                                  "unshifted decay"])
+def test_smoke_statescan_grad_hold_rejects_a_broken_backward(
+        smoke, monkeypatch, kind):
+    monkeypatch.setattr(ps, "state_scan_grad", broken_state_scan_grad(kind))
+    grads, a, s, g, bc = statescan_grads(smoke, 26)
+    bad, _ = smoke.statescan_grad_misses(grads, a, s, g, bc)
+    assert bad["interpret ds"] + bad["interpret da"] > 0
+    assert bad["ref ds"] == bad["ref da"] == 0
+
+
 def test_smoke_phase_f_bound_rejects_a_broken_carry(smoke):
     # the gate phase F holds the plain walk to must fail a scan whose carry
     # is lost part-way along the row, or whose tail is left unwritten
@@ -569,3 +623,149 @@ def test_gluon_source_defines_the_state_scan_entry():
     assert "gl.convert_layout(b, SCAN)" in ast.unparse(fns["k4_state_scan"])
     assert "warmup" not in ps.GLUON_SOURCE and not hasattr(
         ps, "parse_scan_layout")
+
+# ---------------------------------------------------------------------------
+# under autograd: the Functions of c4_chunkscan and c4_statescan, whose
+# backward is K4's reverse walk
+# ---------------------------------------------------------------------------
+
+def test_gluon_entries_take_the_reverse_walk():
+    tree = ast.parse(ps.GLUON_SOURCE)
+    fns = {n.name: ast.unparse(n) for n in tree.body
+           if isinstance(n, ast.FunctionDef)}
+    for name in ("k4_chunk_scan", "k4_state_scan"):
+        assert "REVERSE: gl.constexpr" in fns[name]
+        assert "c = cols - 1 - c" in fns[name]       # indices only
+    assert "ca = cols - 1 - ca" in fns["k4_state_scan"]   # the decays too
+
+
+@pytest.mark.parametrize("shape", [(3, 37), (1, 1), (5, 8), (2, 300)])
+def test_reverse_walk_is_the_forward_walk_on_flipped_rows(shape):
+    a = torch.from_numpy(decay(shape))
+    b = torch.from_numpy(normal(shape))
+    got = ps.chunk_scan_kernel(a, b, interpret=True, reverse=True)
+    want = ps.chunk_scan_kernel(a.flip(1), b.flip(1), interpret=True).flip(1)
+    assert torch.equal(got, want)
+    # and it is the adjoint recurrence λ[c] = b[c] + a[c]·λ[c+1]
+    lam = torch.zeros(shape[0], dtype=torch.float64)
+    seq = []
+    for c in reversed(range(shape[1])):
+        lam = b[:, c].double() + a[:, c].double() * lam
+        seq.append(lam)
+    close(got, torch.stack(seq[::-1], 1), AFFINE_TOL)
+
+
+@pytest.mark.parametrize("a_shape,s_shape,axis", [
+    ((2, 7, 3), (2, 7, 3, 4, 5), 1), ((2, 7, 3), (2, 7, 3, 4, 5), -4),
+    ((3, 5), (3, 5, 6, 2), 2), ((2, 40, 3), (2, 40, 3, 2, 2), 1)])
+def test_reverse_state_walk_is_the_forward_walk_on_flipped_chunks(
+        a_shape, s_shape, axis):
+    a = torch.from_numpy(decay(a_shape))
+    s = torch.from_numpy(normal(s_shape))
+    ax = axis % len(s_shape)
+    got = ps.chunk_scan_state_kernel(a, s, axis, interpret=True,
+                                     reverse=True)
+    fa = a.flip(ax) if ax < a.ndim else a
+    want = ps.chunk_scan_state_kernel(fa, s.flip(ax), axis,
+                                      interpret=True).flip(ax)
+    assert torch.equal(got, want)
+
+
+def _decay64(shape, seed):
+    # random decays in (0, 1]: the model's own are ≈ 0 (PERF.md §4)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(1.0 - rng.uniform(0.0, 1.0, shape)
+                            ).requires_grad_()
+
+
+@pytest.mark.parametrize("shape", [(3, 37), (2, 1), (4, 9)])
+def test_chunk_scan_function_passes_gradcheck(shape):
+    a = _decay64(shape, 1)
+    b = torch.from_numpy(np.random.default_rng(2).standard_normal(shape)
+                         ).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda a, b: ops.chunk_scan(a, b, mode="interpret"), (a, b))
+
+
+@pytest.mark.parametrize("a_shape,s_shape,axis", [
+    ((2, 5, 3), (2, 5, 3, 4, 2), 1),        # SSD rank
+    ((2, 5, 3), (2, 5, 3, 4, 2), -4),       # a negative axis
+    ((2, 11, 2), (2, 11, 2, 3, 1), 1),      # ragged chunk count
+    ((2, 5), (2, 5, 3, 2), 2),              # the decay constant along it
+    ((2, 5, 1), (2, 5, 3, 2, 2), 1),        # the decay broadcast
+])
+def test_state_scan_function_passes_gradcheck(a_shape, s_shape, axis):
+    a = _decay64(a_shape, 3)
+    s = torch.from_numpy(np.random.default_rng(4).standard_normal(s_shape)
+                         ).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda a, s: ops.chunk_scan_state(a, s, axis=axis,
+                                          mode="interpret"), (a, s))
+
+
+@pytest.mark.parametrize("shape", [(3, 37), (8, 64)])
+def test_chunk_scan_grads_match_jax(shape):
+    a, b = decay(shape), normal(shape)
+    g = normal(shape)
+    ja, jb = jax.grad(lambda a, b: jnp.sum(jref.chunk_scan(a, b) * g),
+                      argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    ta = torch.from_numpy(a).requires_grad_()
+    tb = torch.from_numpy(b).requires_grad_()
+    for mode in ("interpret", "ref"):
+        y = ops.chunk_scan(ta, tb, mode=mode)
+        da, db = torch.autograd.grad(y, (ta, tb), torch.from_numpy(g))
+        close(da, ja, AFFINE_TOL)
+        close(db, jb, AFFINE_TOL)
+
+
+def test_state_scan_grads_match_jax():
+    a, s, g = decay((2, 12, 3)), normal((2, 12, 3, 4, 5)), \
+        normal((2, 12, 3, 4, 5))
+    ja, js = jax.grad(lambda a, s: jnp.sum(
+        jref.chunk_scan_state(a, s, axis=1) * g), argnums=(0, 1))(
+            jnp.asarray(a), jnp.asarray(s))
+    ta = torch.from_numpy(a).requires_grad_()
+    ts = torch.from_numpy(s).requires_grad_()
+    for mode in ("interpret", "ref"):
+        y = ops.chunk_scan_state(ta, ts, axis=1, mode=mode)
+        da, ds = torch.autograd.grad(y, (ta, ts), torch.from_numpy(g))
+        close(da, ja, AFFINE_TOL)
+        close(ds, js, AFFINE_TOL)
+
+
+def test_scan_functions_keep_dtypes_and_save_their_output():
+    a = torch.from_numpy(decay((2, 6, 3))).to(torch.bfloat16).requires_grad_()
+    s = torch.from_numpy(normal((2, 6, 3, 2, 2))).requires_grad_()
+    y = ops.chunk_scan_state(a, s, axis=1, mode="interpret")
+    assert y.dtype == torch.float32 and y.grad_fn is not None
+    da, ds = torch.autograd.grad(y.sum(), (a, s))
+    assert da.dtype == torch.bfloat16 and ds.dtype == torch.float32
+    assert da.shape == a.shape and ds.shape == s.shape
+
+
+def test_isa_guard_refuses_kernels_without_a_backward():
+    # K1 (c0, fused chains), K5 (c2_sort), K6 (c1_merge), K3
+    # (c3_prefixsum) and K8 (c6_flashattn) have no backward: on the
+    # kernel and interpret paths they raise rather than detach
+    x = torch.randn(2, 64, requires_grad=True)
+    y = torch.randn(2, 64)
+    calls = {
+        "c0_scale": lambda m: ops.stream_scale(x, 2.0, mode=m),
+        "c0_scale+c0_add": lambda m: repro_torch.core.isa.fuse(
+            "c0_scale", "c0_add")(2.0, x, y, mode=m),
+        "c2_sort": lambda m: ops.sort_chunks(x, 8, mode=m),
+        "c1_merge": lambda m: ops.merge_sorted(x, y, mode=m),
+        "c3_prefixsum": lambda m: ops.prefix_sum(x, mode=m),
+        "c6_flashattn": lambda m: ops.flash_attention(
+            x[None, None], y[None, None], y[None, None], mode=m),
+    }
+    for name, call in calls.items():
+        for mode in ("interpret", "kernel"):
+            with pytest.raises(ValueError, match=re.escape(name)):
+                call(mode)
+        call("ref")                          # autograd differentiates ref
+        with torch.no_grad():
+            call("interpret")                # nothing to lose
+    # K3's one-hot of integer ids needs no gradient: no raise
+    onehot = torch.nn.functional.one_hot(torch.tensor([0, 2, 1, 2]), 3)
+    ops.prefix_sum(onehot.float().T, mode="interpret")

@@ -365,6 +365,7 @@ def former_statescan(a, s, axis):
 
 @pytest.mark.parametrize("a_shape,s_shape,axis", [
     ((4, 32, 64), (4, 32, 64, 64, 128), 1),      # chip_smoke G, Mamba2-1.3B
+    ((4, 16, 64), (4, 16, 64, 64, 128), 1),      # chip_smoke L's train step
     ((4, 8, 64), (4, 8, 64, 50, 16), 1),         # Hymba-1.5B: P·N = 800
     ((3, 5, 7), (3, 5, 7, 9, 11), 1),            # ragged
     ((2, 40, 3), (2, 40, 3, 4, 4), 1),           # chunks beyond one block
@@ -395,3 +396,79 @@ def test_k4_state_scan_bit_for_bit_in_bfloat16(cuda):
     got = ops.chunk_scan_state(a, s, axis=1, mode="kernel")
     want = former_statescan(a, s, 1)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# K4's reverse walk: the backward of c4_chunkscan and c4_statescan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("a_shape,s_shape,axis", [
+    ((4, 32, 64), (4, 32, 64, 64, 128), 1),      # chip_smoke G's shape
+    ((4, 16, 64), (4, 16, 64, 64, 128), 1),      # chip_smoke L's train step
+    ((4, 8, 64), (4, 8, 64, 50, 16), 1),         # Hymba-1.5B: P·N = 800
+    ((3, 5, 7), (3, 5, 7, 9, 11), 1),            # ragged
+    ((2, 40, 3), (2, 40, 3, 4, 4), 1),           # chunks beyond one block
+    ((2, 8, 4), (2, 8, 4, 3, 5), -2),            # counted on the states
+])
+def test_k4_reverse_state_walk_is_the_forward_on_flipped_chunks(
+        cuda, a_shape, s_shape, axis):
+    # the reverse entry maps indices only: its layout and combine order
+    # are the forward's, so it is the forward on flipped copies bit for bit
+    rng = np.random.default_rng(17)
+    a = torch.from_numpy(1 - rng.uniform(0, 1, a_shape).astype(np.float32)
+                         ).to(cuda)
+    g = keys(s_shape, torch.float32, 18, cuda)
+    ax = axis % len(s_shape)
+    before = ps.K4.reverse_launches
+    got = ps.chunk_scan_state_kernel(a, g, axis, reverse=True)
+    assert ps.K4.reverse_launches == before + 1
+    fa = a.flip(ax) if ax < a.ndim else a     # past a's dims: constant
+    want = ps.chunk_scan_state_kernel(fa, g.flip(ax), axis).flip(ax)
+    assert torch.equal(got, want)
+    plain = ps.chunk_scan_state_kernel(a, g, axis, interpret=True,
+                                       reverse=True)
+    assert torch.allclose(got, plain, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("shape", [(1, 16), (4, 256), (3, 5000), (1000, 32)])
+def test_k4_reverse_walk_is_the_forward_on_flipped_rows(cuda, shape):
+    rng = np.random.default_rng(19)
+    a = torch.from_numpy(1 - rng.uniform(0, 1, shape).astype(np.float32)
+                         ).to(cuda)
+    g = keys(shape, torch.float32, 20, cuda)
+    got = ps.chunk_scan_kernel(a, g, reverse=True)
+    want = ps.chunk_scan_kernel(a.flip(1), g.flip(1)).flip(1)
+    assert torch.equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_k4", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_k4_statescan_backward_within_the_summation_bound(cuda, smoke):
+    # the Function's backward on the card, in kernel and interpret modes,
+    # held as chip_smoke's phase L holds it (statescan_grad_misses): λ
+    # within G's first-order bound of float64 counted from the end, the
+    # two modes' λ within it of each other, da = Σ_{P,N} λ[c]·y[c−1]
+    # within the bound carried through the product and the reduction
+    rng = np.random.default_rng(21)
+    shape = (2, 24, 4)
+    a = torch.from_numpy(1 - rng.uniform(0, 1, shape).astype(np.float32)
+                         ).to(cuda).requires_grad_()
+    s = keys(shape + (8, 16), torch.float32, 22, cuda).requires_grad_()
+    g = keys(shape + (8, 16), torch.float32, 23, cuda)
+    grads = {}
+    for mode in ("kernel", "interpret"):
+        y = ops.chunk_scan_state(a, s, axis=1, mode=mode)
+        grads[mode] = torch.autograd.grad(y, (a, s), g)
+    bc = ps.block_shape(g.numel() // shape[1], shape[1])[1]
+    bad, _ = smoke.statescan_grad_misses(grads, a.detach(), s.detach(), g,
+                                         bc)
+    assert not any(bad.values()), bad

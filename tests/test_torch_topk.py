@@ -354,3 +354,42 @@ def test_k7_walk_emulated_at_the_prefill_rows(dtype):
     x[3:] = torch.from_numpy(arr((4093, 384), dtype)).to(x.dtype)
     same_topk_bits(topk_emulated(x, 8, 512),
                    ref.topk(tk.pad_to(x, 512), 8))
+
+
+# ---------------------------------------------------------------------------
+# under autograd: c5_topk's Function, whose backward is lax.top_k's VJP
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["interpret", "ref"])
+@pytest.mark.parametrize("rows,n,k,ties", [
+    (16, 384, 8, False), (4, 151, 5, False), (8, 16, 4, True),
+    (3, 8, 8, True)])
+def test_topk_grad_is_lax_top_k_vjp_exactly(mode, rows, n, k, ties):
+    # the values' cotangent scattered to the picked indices: ties go to
+    # the index the forward picked (ascending index among equal keys),
+    # as in jax.grad through lax.top_k
+    x = (RNG.integers(0, 3, (rows, n)).astype(np.float32) if ties
+         else arr((rows, n), "float32"))
+    g = arr((rows, k), "float32")
+    want = jax.grad(lambda x: jnp.sum(jax.lax.top_k(x, k)[0] * g))(
+        jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    vals, idx = ops.topk(tx, k, mode=mode)
+    assert not idx.requires_grad
+    (got,) = torch.autograd.grad(vals, tx, torch.from_numpy(g))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_topk_grad_keeps_the_input_dtype_and_leading_axes():
+    x = torch.from_numpy(arr((2, 3, 64), "bfloat16")).to(
+        torch.bfloat16).requires_grad_()
+    vals, _ = ops.topk(x, 4, mode="interpret")
+    (got,) = torch.autograd.grad(vals.float().sum(), x)
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert int((got != 0).sum()) == 2 * 3 * 4
+
+
+def test_topk_function_passes_gradcheck():
+    x = torch.from_numpy(RNG.standard_normal((5, 40))).requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda x: ops.topk(x, 6, mode="interpret")[0], (x,))
