@@ -146,6 +146,37 @@ Phases (inputs from numpy with a fixed seed):
      (repro_torch.launch.train.main) on reduced Mamba2 for 6 steps with
      checkpoints every 3 in a temporary directory under build/, and a
      resume to 9
+  N  the device mesh, its ranks processes spawned by torch.multiprocessing
+     that all use the one card (NCCL refuses two ranks on one device), in
+     a gloo group over a file store under build/, GLOO_SOCKET_IFNAME=lo:
+     every collective stages CUDA tensors through pinned host buffers
+     (distributed/collectives.py), so its time is host-staged. Each
+     case's ranks run together, the cases one after another; a rank that
+     raises fails the spawn. N1: make_pod_sync on a (pod 4, data 1,
+     model 1) mesh over Mamba2-1.3B's whole param tree (48 layers, bf16),
+     rank r's params the base plus r·1e-3. N2: one MoE layer at Kimi-K2's
+     published widths (384 experts top-8, d_ff_expert 2048, bf16) on 4
+     ranks of H's 4 × 1024 tokens, EP on (data 4, model 1) (96 experts a
+     rank, each its own rows) then TP on (1, 4) (each expert's FFN in 4,
+     the model peers on rank 0's rows); every rank draws only its shards
+     (draw_leaf, as init_params(mesh=) draws: blocks seeded per leaf and
+     block, the values of a world of one); the parent first runs
+     _dispatch_combine with all 384 experts on one process (33.8 GB). N3: FSDP training of
+     Mamba2-1.3B uncut on (data 2, model 1), 2 steps of L's 4 × 4096
+     global batch (2 × 4096 a rank), after the same 2 steps on one
+     process over the same row blocks (L's path with grad_accum 2); K4 held at a rank's (2, 16, 64, 64, 128) as L
+     holds it. N4: Mamba2-1.3B's forward in 4 GPipe stages of 12 layers,
+     8 microbatches of (1, 2048) tokens, against the same 48 layers on
+     one process. N5: Scheduler(mesh=, mesh_axis="parts") on 2 ranks
+     serves I's tenant A (16 fuse(c0_scale, c0_add) of 2²² float32). N6:
+     train.main --model-parallel 2 on 4 ranks (2×2) for Mamba2 and
+     Kimi-K2 reduced, 4 steps with checkpoints, and with
+     --pod-sync-every 2; the resume of both on 2 ranks (2×1);
+     serve.main --model-parallel 2 (1×2) and on 2×1, against one
+     process's tokens. Prints one ``distributed`` JSON line (each case's
+     seconds, collective seconds, bytes staged through host, launches,
+     rank peaks) before the kernels line, whose rows gain K7 and K3 at
+     N2's router shapes, K4 at N3's and N4's and K1 at N5's chunk
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -247,6 +278,34 @@ Tolerances (fixed before any run):
     of each layer) and nothing in ref mode; K7's gradient at the router
     shape equal to the scatter of ref.topk's picks; train.main's resume
     prints "resumed from step 6" and ends on a finite loss;
+  * N1: every leaf of every rank bit for bit against
+    ring_allreduce_plain of the four ranks' leaves, replayed once a leaf
+    on the parent after the ranks exit (each hop one IEEE operation; the
+    ranks' leaves compared by SHA-256), and within 8/127 of the float64
+    mean's absmax (the reference test's bound); N2: routing (ids, dst) bit-exact against the
+    one-process layer on the same rows, outputs within 4 bf16 ulps of
+    each row's max |ref| (each expert's output and TP's four partials are
+    rounded to bf16 once, and EP's expert buffers have 4·cap rows: another
+    product algorithm), K7 and K3 once a rank a call; N3: step 0's loss
+    within rtol 2e-4 of the one-process run's (the reference test's), each
+    step's grad norm within rtol 1e-2 (bf16 gradients summed over two
+    shards in another order), each step's reduced gradient shards leaf
+    by leaf within 2⁻⁷ (one bf16 ulp) of the max |g| of one process's
+    gradient over the same row blocks (grad_accum 2: a rank's reduced
+    gradient is the bf16 rounding of the mean that one process sums in
+    float32; the whole batch's gradient at once is printed beside it, up
+    to 0.18 of the max away from both in bf16 through 48 layers), K4 96
+    forward and 48 reverse a step a rank; after step 1 every param finite, and where the two steps'
+    gradients are well above their error (n3_hold_params; at least half
+    the params) within one bf16 ulp plus lr/8 of the one-process run's;
+    N4:
+    the last stage's outputs bit-identical to the one-process forward
+    (same ops and shapes; the handoff is a copy), K4 12 times a stage an
+    active tick, each stage idle on 3 of 11 ticks (bubble_fraction(4, 8));
+    N5: every result bit for bit against its solo K1 launch, one
+    k1_batch_kernel a rank, both ranks' placements equal; N6: the resume
+    prints "resumed from step 4 on mesh 2x1", the served tokens equal
+    one process's; each rank's peak under N_RANK_PEAK (counted there);
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
     (padding the one-row operand to 8 rows would pass it), for H the
@@ -256,7 +315,8 @@ Tolerances (fixed before any run):
     (``ssm_peak_limit``: 14.5 GB for J, 8.4 GB for K); for L the larger
     of a train step's two peaks counted in bytes (``train_peak_limit``:
     the forward and backward's, the optimizer update's: 50.2 GB); 3 GB
-    for M.
+    for M; for N's parent L's (N2's one-process layer holds 33.8 GB of
+    experts, N3's reference is L's step).
 
 Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
 operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
@@ -314,7 +374,8 @@ from repro_torch.memhier import H100  # noqa: E402
 from repro_torch.sched import (CostModel, RequestQueue, Scheduler,  # noqa: E402
                                TraceRecorder, placements_match, replay)
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.params import DTYPES, param_specs, tree_items  # noqa: E402,E501
+from repro_torch.models.params import (DTYPES, param_specs, tree_items,  # noqa: E402,E501
+                                       tree_map)
 
 SEED = 0
 N_STREAM = 1 << 26                 # 256 MiB per float32 array
@@ -2400,7 +2461,9 @@ def run_phase_l(dev, check, rows):
     print(json.dumps({"train": summary}), flush=True)
 
 
-def hold_train_scan(dev, check, rows, shape, launches) -> dict:
+def hold_train_scan(dev, check, rows, shape, launches, label: str = "L",
+                    counted_in: str = "a phase L train step (48 layers)"
+                    ) -> dict:
     """K4 at the train step's own states shape (B, C, H, P, N), on random
     decays in (0, 1] (the model's own are 0 in float32, so there λ = g):
     the forward entry and the reverse walk on the backward's operands
@@ -2418,31 +2481,31 @@ def hold_train_scan(dev, check, rows, shape, launches) -> dict:
     n = s.numel()
     fwd = K4.state_scan(a, s, 1)
     plain = ps.chunk_scan_state_kernel(a, s, 1, interpret=True)
-    worst_f = hold_statescan(check, "L K4 forward", fwd, plain, a, s, bc)
+    worst_f = hold_statescan(check, f"{label} K4 forward", fwd, plain, a, s, bc)
     err_f = max_abs(fwd, plain)
     del fwd, plain
     rows.append(entry(
-        f"L chunk_scan_state {shape} float32 in place (the train step's "
+        f"{label} chunk_scan_state {shape} float32 in place (the train step's "
         f"forward and recompute)", launches["K4 forward"], err_f,
         time_ms(lambda: K4.state_scan(a, s, 1)),
         time_ms(lambda: ps.chunk_scan_state_kernel(a, s, 1, interpret=True),
                 reps=5),
         8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
         max_abs_err_f64=worst_f,
-        launches_counted_in="a phase L train step (48 layers)"))
+        launches_counted_in=counted_in))
 
     shifted = ps.next_decay(a, 1)
     rev = K4.state_scan(shifted, g, 1, reverse=True)
     flipped = K4.state_scan(shifted.flip(1), g.flip(1), 1).flip(1)
     same = torch.equal(rev, flipped)
-    check.true("L K4 reverse walk: not bit-identical to the forward entry "
+    check.true(f"{label} K4 reverse walk: not bit-identical to the forward entry "
                "on flipped copies", same)
     del flipped
     plain = ps.chunk_scan_state_kernel(shifted, g, 1, interpret=True,
                                        reverse=True)
     # the reverse walk is the forward recurrence on flipped chunks: held
     # there against float64 at G's bound
-    worst_r = hold_statescan(check, "L K4 reverse walk", rev.flip(1),
+    worst_r = hold_statescan(check, f"{label} K4 reverse walk", rev.flip(1),
                              plain.flip(1), shifted.flip(1), g.flip(1), bc)
     err_r = max_abs(rev, plain)
     del rev, plain
@@ -2455,16 +2518,16 @@ def hold_train_scan(dev, check, rows, shape, launches) -> dict:
         grads[mode] = torch.autograd.grad(y, (ar, sr), g)
         bw[mode] = (K4.launches, K4.reverse_launches)
         del y, ar, sr
-    check.true(f"L backward: K4 (forward, reverse) launches {bw}, want "
+    check.true(f"{label} backward: K4 (forward, reverse) launches {bw}, want "
                f"(1, 1) in kernel mode and none in interpret mode",
                bw == {"kernel": (1, 1), "interpret": (0, 0)})
     bad, worst = statescan_grad_misses(grads, a, s, g, bc)
     for key, k in bad.items():
-        check.true(f"L backward {key}: {k} elements outside the bound", k == 0)
+        check.true(f"{label} backward {key}: {k} elements outside the bound", k == 0)
     y = K4.state_scan(a, s, 1)
     del grads
     rows.append(entry(
-        f"L reverse walk {shape} float32 in place (the backward of "
+        f"{label} reverse walk {shape} float32 in place (the backward of "
         f"c4_statescan)", launches["K4 reverse"], err_r,
         time_ms(lambda: K4.state_scan(shifted, g, 1, reverse=True)),
         time_ms(lambda: ps.chunk_scan_state_kernel(
@@ -2473,7 +2536,7 @@ def hold_train_scan(dev, check, rows, shape, launches) -> dict:
         max_abs_err_f64=worst_r, bit_identical_to_forward_flipped=same,
         backward_call_ms=time_ms(
             lambda: ps.state_scan_grad(a, y, g, 1))[0],
-        launches_counted_in="a phase L train step (48 layers)",
+        launches_counted_in=counted_in,
         forward_launches_in_step=launches["K4 forward"]))
     del a, s, g, y, shifted
     return {"states": list(shape), "block": [br, bc],
@@ -2641,6 +2704,872 @@ def run_phase_m(dev, check, rows):
         flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase N: the mesh on the card — ranks as processes sharing it, over gloo
+# ---------------------------------------------------------------------------
+
+N_ARCH = TRAIN_ARCH                 # N1, N3, N4: Mamba2-1.3B uncut
+N1_RANKS, N1_DELTA = 4, 1e-3        # pods; rank r's params: base + r·δ
+N1_BOUND = 8 / 127                  # of the mean's absmax (the reference's)
+N2_RANKS, N2_ULPS = 4, 4            # MoE ranks; bf16 ulps at a row's max
+N3_RANKS, N3_STEPS = 2, 2           # FSDP ranks and steps
+N3_LOSS_RTOL, N3_GNORM_RTOL = 2e-4, 1e-2
+N3_GRAD_REL = 2.0 ** -7  # a leaf's gradient, of its max |g| (one bf16 ulp)
+N3_DU_SLOPE = 1.8        # |δu| ≤ 1.8·(|δg0| + |δg1|)/max(|g0|, |g1|)
+N3_HELD_REL = 1 / 16     # params held where that slope term is ≤ 1/16
+N3_UPDATE_TOL = 1 / 8    # then |δp| ≤ one bf16 ulp + lr/8 (docstring)
+N4_STAGES, N4_MICRO, N4_SEQ = 4, 8, 2048
+N5_RANKS = 2
+
+
+def n2_config():
+    """Kimi-K2's MoE at its published widths, one layer."""
+    return dataclasses.replace(get_config(LM_ARCH), n_layers=1)
+
+
+def moe_bytes(cfg) -> int:
+    return sum(math.prod(s.shape) * DTYPES[s.dtype or cfg.param_dtype].itemsize
+               for path, s in tree_items(param_specs(cfg))
+               if path.startswith("layers.moe."))
+
+
+def fsdp_peak_limit(cfg, batch: int, seq: int, ranks: int) -> float:
+    """A rank's limit in phase N3: phase L's count of a train step at the
+    rank's rows, with the params' share of it (seven copies of the bf16
+    params) cut to the rank's shards, plus the embedding and one layer
+    gathered whole with their full-size gradients."""
+    params = weight_bytes(cfg)
+    layer = params / cfg.n_layers
+    embed = cfg.vocab_padded * cfg.d_model * 2
+    return (train_peak_limit(cfg, batch, seq) - 7 * params * (1 - 1 / ranks)
+            + 2 * (embed + layer))
+
+
+def dispatch_bytes(cfg, tokens: int) -> int:
+    """One (E·cap, d_model) buffer of the MoE dispatch, in bf16."""
+    from repro_torch.models.moe import _capacity
+    return cfg.n_experts * _capacity(cfg, tokens) * cfg.d_model * 2
+
+
+def largest_leaf(cfg) -> int:
+    return max(math.prod(s.shape) for _, s in tree_items(param_specs(cfg)))
+
+
+#: each rank's device-memory limit, by case (see PERF.md, phase N): N1
+#: the base params, the rank's shifted copy and the synced ones, and six
+#: float32 copies of the largest leaf while the ring syncs it (its
+#: float32 copy, the padded chunks, the output before the slice, the
+#: slice, the division, the hops' int8 and dequantised chunks); N2 the rank's experts and twelve (E·cap, d)
+#: bf16 dispatch buffers (the dispatch keeps its locals to its end: the
+#: repeated tokens, the send buffer, each all-to-all's output and
+#: transposed copy, the FFN's output, the padded copy, the gathered rows
+#: and their two float32 copies at twice the size)
+N_RANK_PEAK = {
+    "N1": 3 * weight_bytes(get_config(N_ARCH))
+    + 6 * 4 * largest_leaf(get_config(N_ARCH)) + 1e9,
+    "N2": moe_bytes(n2_config()) / N2_RANKS
+    + 12 * dispatch_bytes(n2_config(), LM_BATCH * LM_PROMPT),
+    "N3": fsdp_peak_limit(get_config(N_ARCH), TRAIN_BATCH // N3_RANKS,
+                          TRAIN_SEQ, N3_RANKS),
+    "N4": weight_bytes(get_config(N_ARCH)) + 3e9,
+    "N5": 3e9, "N6": 3e9}
+PEAK_MEM_LIMIT["N"] = max(PEAK_MEM_LIMIT["L"], moe_bytes(n2_config()) + 8e9)
+
+
+def _rank_main(rank: int, world: int, store: str, out_dir: str, case: str,
+               args) -> None:
+    """One rank of a phase N case: a gloo process group over a file
+    store, the card shared by every rank; its result pickled for the
+    parent. An exception fails the spawn."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=900))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        res = RANK_CASES[case](rank, *args)
+        torch.cuda.synchronize()
+        res["peak_bytes"] = max(res.get("peak_bytes", 0),
+                                torch.cuda.max_memory_allocated())
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def spawn_ranks(case: str, world: int, *args) -> list[dict]:
+    """``RANK_CASES[case](rank, *args)`` on ``world`` processes (start
+    method spawn, gloo over loopback); their results in rank order, each
+    with the spawn's seconds."""
+    import pickle
+    import tempfile
+    import torch.multiprocessing as mp
+    build = ROOT / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    prev = os.environ.get("GLOO_SOCKET_IFNAME")
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            t0 = time.perf_counter()
+            mp.start_processes(_rank_main, args=(world, os.path.join(
+                d, "store"), d, case, args), nprocs=world,
+                start_method="spawn")
+            spawn_s = time.perf_counter() - t0
+            out = []
+            for r in range(world):
+                with open(os.path.join(d, f"{r}.pkl"), "rb") as f:
+                    out.append(pickle.load(f))
+    finally:
+        if prev is None:
+            os.environ.pop("GLOO_SOCKET_IFNAME", None)
+        else:
+            os.environ["GLOO_SOCKET_IFNAME"] = prev
+    for o in out:
+        o["spawn_s"] = spawn_s
+    return out
+
+
+def _collectives():
+    from repro_torch.distributed import collectives as C
+    return C
+
+
+def _timed(fn):
+    """(fn's result, its wall seconds, the seconds in collectives, the
+    bytes staged through host) — counters reset before."""
+    C = _collectives()
+    C.STAGED_BYTES, C.SECONDS = 0, 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, C.SECONDS, C.STAGED_BYTES
+
+
+def n1_shifted(leaf: torch.Tensor, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s copy of a base param leaf in N1: base + rank·δ."""
+    return (leaf.float() + rank * N1_DELTA).to(leaf.dtype)
+
+
+def leaf_digest(t: torch.Tensor) -> str:
+    """SHA-256 of a tensor's bytes (its bits, whatever its dtype)."""
+    import hashlib
+    return hashlib.sha256(t.detach().contiguous().cpu().reshape(-1).view(
+        torch.uint8).numpy()).hexdigest()
+
+
+def n1_rank(rank: int) -> dict:
+    """make_pod_sync on a (pod 4, data 1, model 1) mesh over Mamba2-1.3B's
+    whole param tree; each synced leaf's bits as a SHA-256, for the
+    parent to hold against the ring's one-process replay."""
+    from repro_torch.launch.mesh import Mesh
+    dev = torch.device("cuda", 0)
+    cfg = get_config(N_ARCH)
+    mesh = Mesh((N1_RANKS, 1, 1), ("pod", "data", "model"))
+    base = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 50), dev)
+    params = {p: n1_shifted(b, rank) for p, b in tree_items(base)}
+    sync = train.make_pod_sync(mesh)
+    out, secs, coll, staged = _timed(lambda: sync(params))
+    return {"seconds": secs, "collective_s": coll, "staged_bytes": staged,
+            "digests": {p: leaf_digest(t) for p, t in out.items()},
+            "param_bytes": weight_bytes(cfg)}
+
+
+def n2_tokens(rank: int, cfg, dev) -> torch.Tensor:
+    """Rank r's (4, 1024, d_model) MoE inputs (H's prefill shape) in the
+    activation dtype (bf16)."""
+    rng = np.random.default_rng(SEED + 52 + rank)
+    return torch.from_numpy(rng.standard_normal(
+        (LM_BATCH, LM_PROMPT, cfg.d_model), dtype=np.float32)).to(dev).to(
+        DTYPES[cfg.act_dtype])
+
+
+def n2_moe_layer(cfg, dev, mesh=None, specs=None) -> dict:
+    """The MoE leaves of N2's one layer as init_params draws them (with a
+    mesh, this rank's shards), drawn leaf by leaf."""
+    from repro_torch.models.params import draw_leaf
+    shards = dict(tree_items(specs)) if specs else {}
+    return {path.rsplit(".", 1)[1]: draw_leaf(
+                cfg, path, SEED + 51, dev, shards.get(path), mesh)[0]
+            for path, _ in tree_items(param_specs(cfg))
+            if path.startswith("layers.moe.")}
+
+
+def n2_rank(rank: int) -> dict:
+    """One MoE layer at Kimi-K2's widths on this rank's 4096 tokens: EP on
+    a (data 4, model 1) mesh (96 experts a rank, each rank its own rows),
+    then TP on (1, 4) (each expert's FFN split in 4 over the model peers,
+    which share rank 0's rows); the experts drawn as this rank's
+    shards."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import moe
+    from repro_torch.models.params import abstract_params, logical_axes
+    dev = torch.device("cuda", 0)
+    cfg = n2_config()
+    out = {}
+    for kind, shape in (("ep", (N2_RANKS, 1)), ("tp", (1, N2_RANKS))):
+        mesh = Mesh(shape, ("data", "model"))
+        specs = sharding.tree_specs(logical_axes(cfg), abstract_params(cfg),
+                                    mesh)
+        layer = n2_moe_layer(cfg, dev, mesh, specs)
+        held = sum(t.numel() * t.element_size() for t in layer.values())
+        # the batch's rows follow the data coordinate: TP's model peers
+        # share theirs
+        x = n2_tokens(mesh.axis_index("data"), cfg, dev)
+        torch.cuda.reset_peak_memory_stats()
+        with sharding.use(mesh, specs), Tap(
+                moe, "_slots", lambda a, kw, o: (a[1].cpu(), o.cpu())) as tap:
+            K7.launches = K3.launches = 0
+            (y, _), secs, coll, staged = _timed(
+                lambda: moe.moe_layer(cfg, layer, x))
+            launches = {"K7": K7.launches, "K3": K3.launches}
+        out[kind] = {"mesh": list(shape), "y": y.cpu(),
+                     "rows_of": mesh.axis_index("data"),
+                     "ids": tap.calls[0][0], "dst": tap.calls[0][1],
+                     "launches": launches, "seconds": secs,
+                     "collective_s": coll, "staged_bytes": staged,
+                     "expert_bytes": held,
+                     "peak_bytes": torch.cuda.max_memory_allocated()}
+        del layer, x, y
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = max(out[k]["peak_bytes"] for k in ("ep", "tp"))
+    return out
+
+
+def n3_rank(rank: int, batches: list, ref_path: str) -> dict:
+    """FSDP training of Mamba2-1.3B uncut on a (data 2, model 1) mesh:
+    each rank draws its shards and trains on its rows of the global
+    batch. Each step's reduced gradient shards (what ``reduce_grads``
+    returns inside the step) are held leaf by leaf against the
+    one-process gradient of the same step over the same row blocks;
+    after the last step the params are held where the gradients are
+    well above their error (:func:`n3_hold_params`)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the reference step
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = get_config(N_ARCH)
+    mesh = Mesh((N3_RANKS, 1), ("data", "model"))
+    specs = api.state_specs(cfg, mesh)
+    pspecs = dict(tree_items(specs["params"]))
+    state = api.make_train_state(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 30), dev, mesh,
+        specs["params"]))
+    step_fn = api.make_train_step(cfg, mesh=mesh, specs=specs)
+    ref = torch.load(ref_path, mmap=True)
+    per = TRAIN_BATCH // N3_RANKS
+    lo = mesh.axis_index("data") * per
+    steps, grads = [], []
+    for i, b in enumerate(batches):
+        rows = {k: torch.from_numpy(v[lo:lo + per]).to(dev)
+                for k, v in b.items()}
+        K4.launches = K4.reverse_launches = K7.launches = K3.launches = 0
+        with Tap(api, "reduce_grads", lambda a, kw, o: o) as tap:
+            (state, metrics), secs, coll, staged = _timed(
+                lambda: step_fn(state, rows))
+        got = dict(tree_items(tap.calls[0]))
+        del tap
+        err, ratio = n3_grad_errors(got, ref["grads"][i], ref["gmax"][i],
+                                    pspecs, mesh, dev)
+        grads.append({p: g.cpu() for p, g in got.items()})
+        del got
+        steps.append({"step": i, "seconds": secs, "collective_s": coll,
+                      "compute_s": secs - coll, "staged_bytes": staged,
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "grad_ratio_by_leaf": ratio,
+                      "grad_err_by_leaf": err,
+                      "launches": {"K4 forward": K4.launches,
+                                   "K4 reverse": K4.reverse_launches,
+                                   "K7": K7.launches, "K3": K3.launches}})
+    lr = float(api._optimizer(cfg).lr(len(batches) - 1))
+    held = n3_hold_params(state["params"], grads, ref, pspecs, mesh, lr, dev)
+    return {"steps": steps, "lr_last_step": lr, **held,
+            "shard_bytes": sum(t.numel() * t.element_size()
+                               for t in tree_leaves(state))}
+
+
+def n3_grad_errors(got: dict, ref_grads: dict, ref_gmax: dict, pspecs,
+                   mesh, dev) -> tuple[dict, dict]:
+    """Each leaf's max |got − ref| on this rank's shard ``got``, and that
+    over the one-process gradient's max |g| (of the whole leaf)."""
+    from repro_torch.distributed import sharding
+    err, ratio = {}, {}
+    for path, g in got.items():
+        want = sharding.local_shard(ref_grads[path], pspecs[path],
+                                    mesh).to(dev)
+        err[path] = float((g.float() - want.float()).abs().max())
+        ratio[path] = err[path] / (ref_gmax[path] or 1.0)
+    return err, ratio
+
+
+def n3_hold_params(params, grads, ref, pspecs, mesh, lr, dev) -> dict:
+    """The params after N3's two steps against the one-process run's.
+    lr(0) = 0, so step 0 leaves the params as they are and step 1 moves
+    them by lr·(u + wd·p), with AdamW's u = m̂/√v̂ of both steps' clipped
+    gradients. For β = (0.9, 0.95), |∂u/∂g_k| ≤ 1.8/max(|g0|, |g1|), so
+    where N3_DU_SLOPE·(|δg0| + |δg1|) (this rank's gradients against the
+    reference's, element by element) is at most N3_HELD_REL of
+    max(|g0|, |g1|), |δu| ≤ 1/16 + 0.028 (the clipped gradients'
+    bf16 roundings, one ulp each) + 0.003 (the two clip scales, the
+    gradient norms ≤ 1e-3 apart) < N3_UPDATE_TOL, and the params are
+    then within one bf16 ulp + N3_UPDATE_TOL·lr; a gradient of the wrong
+    sign moves a param up to 2·lr away. Every param must be finite."""
+    from repro_torch.distributed import sharding
+    held = outside = total = beyond = 0
+    finite = True
+    worst = 0.0
+    for path, got in tree_items(params):
+        spec = pspecs[path]
+
+        def shard(t):
+            return sharding.local_shard(t, spec, mesh).to(dev).float()
+        want = shard(ref["params"][path])
+        g0r, g1r = (shard(ref["grads"][i][path]) for i in (0, 1))
+        dg = ((grads[0][path].to(dev).float() - g0r).abs()
+              + (grads[1][path].to(dev).float() - g1r).abs())
+        mask = N3_DU_SLOPE * dg <= N3_HELD_REL * torch.maximum(g0r.abs(),
+                                                               g1r.abs())
+        got = got.float()
+        finite = finite and bool(torch.isfinite(got).all())
+        diff = (got - want).abs()
+        excess = diff - bf16_ulp(torch.maximum(got.abs(), want.abs()))
+        beyond += int((~(excess <= 0)).sum())
+        outside += int((~(excess <= N3_UPDATE_TOL * lr) & mask).sum())
+        if mask.any():
+            worst = max(worst, float(excess[mask].max()) / lr)
+        held += int(mask.sum())
+        total += got.numel()
+    return {"params_finite": finite, "params_held": held,
+            "params_total": total, "params_beyond_1ulp": beyond,
+            "params_outside_bound": outside,
+            "worst_beyond_ulp_over_lr": worst}
+
+
+def n4_rank(rank: int, tokens: np.ndarray) -> dict:
+    """Mamba2-1.3B's forward in 4 stages of 12 layers at full width
+    (gpipe_forward), 8 microbatches of (1, 2048) tokens; the last stage
+    returns its outputs."""
+    from repro_torch.distributed.pipeline import gpipe_forward
+    from repro_torch.launch.mesh import Mesh
+    dev = torch.device("cuda", 0)
+    cfg = get_config(N_ARCH)
+    mesh = Mesh((N4_STAGES,), ("stage",))
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 53), dev)
+    per = cfg.n_layers // N4_STAGES
+    lo = rank * per
+    mine = tree_map(lambda a: a[lo:lo + per].clone(), params["layers"])
+    with torch.no_grad():
+        mbs = torch.stack([M._embed(cfg, params, {"tokens": torch.from_numpy(
+            t).to(dev)}) for t in tokens])
+    del params
+    torch.cuda.empty_cache()
+    positions = torch.arange(N4_SEQ, dtype=torch.int32, device=dev)
+    active = []
+
+    def stage(lp, x):
+        active.append(1)
+        for i in range(per):
+            x, _ = M.block(cfg, M._layer(lp, i), x, positions)
+        return x
+    K4.launches = 0
+    with torch.no_grad():
+        outs, secs, coll, staged = _timed(lambda: gpipe_forward(
+            stage, mine, mbs, mesh.group("stage"), N4_STAGES))
+    ticks = N4_MICRO + N4_STAGES - 1
+    return {"K4": K4.launches, "active_ticks": len(active), "ticks": ticks,
+            "idle_ticks": ticks - len(active), "seconds": secs,
+            "collective_s": coll, "staged_bytes": staged,
+            "outs": outs.cpu() if rank == N4_STAGES - 1 else None}
+
+
+def n5_rank(rank: int) -> dict:
+    """I's tenant A through Scheduler(mesh=, mesh_axis="parts") on 2
+    ranks: 16 fuse(c0_scale, c0_add) requests of 2²² float32, one
+    coalesced batch, each rank's chunk one call_batch (one
+    k1_batch_kernel); every result held against its solo K1 launch."""
+    from repro_torch.launch.mesh import Mesh
+    dev = torch.device("cuda", 0)
+    mesh = Mesh((N5_RANKS,), ("parts",))
+    arrays = make_inputs(SEED + 56, [N_SCHED_ITEM] * (2 * N_SCHED_ITEMS),
+                         dev)
+    xs, bs = arrays[:N_SCHED_ITEMS], arrays[N_SCHED_ITEMS:]
+    fused = isa.fuse("c0_scale", "c0_add")
+    q = RequestQueue()
+    items = [q.submit(fused, (SCALE, x, b), tenant="A")
+             for x, b in zip(xs, bs)]
+    sched = Scheduler(q, cost=CostModel(hierarchy=H100), policy="wfq",
+                      clock="wall", mesh=mesh, mesh_axis="parts",
+                      mode="kernel")
+    K1.launches = 0
+    rep, secs, coll, staged = _timed(sched.drain)
+    launches = K1.launches
+    exact = all(torch.equal(rep.results[it.seq],
+                            fused(SCALE, x, b, mode="kernel"))
+                for it, x, b in zip(items, xs, bs))
+    return {"K1": launches, "bit_exact_vs_solo": exact, "seconds": secs,
+            "collective_s": coll, "staged_bytes": staged,
+            "n_lanes": sched.n_lanes,
+            "placements": [(p.seq, p.lane, p.round, p.batch_seq,
+                            p.coalesced, p.channel) for p in rep.placements]}
+
+
+def _captured(fn, argv):
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    return buf.getvalue(), ret
+
+
+def n6_rank(rank: int, runs: list) -> dict:
+    """The entry points on this world: ("train" | "serve", argv) each."""
+    out = []
+    for kind, argv in runs:
+        text, ret = _captured(train.main if kind == "train" else serve.main,
+                              argv)
+        out.append({"text": text, "tokens": None if kind == "train"
+                    else np.asarray(ret)})
+    return {"runs": out}
+
+
+RANK_CASES = {"N1": n1_rank, "N2": n2_rank, "N3": n3_rank, "N4": n4_rank,
+              "N5": n5_rank, "N6": n6_rank}
+
+
+def _rank_peaks(check, case: str, ranks: list[dict]) -> list[int]:
+    peaks = [r["peak_bytes"] for r in ranks]
+    check.true(f"{case}: rank peaks {peaks} B, limit "
+               f"{N_RANK_PEAK[case]:.0f} B",
+               max(peaks) < N_RANK_PEAK[case])
+    return peaks
+
+
+def run_n1(dev, check, rows) -> dict:
+    """N1's ranks, then, on the parent, each leaf's ring replayed for the
+    four ranks at once (``ring_allreduce_plain``): every rank's synced
+    leaf bit for bit its replay (their SHA-256s equal), and the replay
+    within N1_BOUND of the float64 mean's absmax."""
+    C = _collectives()
+    ranks = spawn_ranks("N1", N1_RANKS)
+    cfg = get_config(N_ARCH)
+    base = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 50), dev)
+    exact, worst = [True] * N1_RANKS, [0.0] * N1_RANKS
+    t0 = time.perf_counter()
+    for path, b in tree_items(base):
+        stacked = torch.stack([n1_shifted(b, r).float()
+                               for r in range(N1_RANKS)])
+        mean = stacked[0].double()
+        for r in range(1, N1_RANKS):
+            mean.add_(stacked[r])           # float64, no temporary
+        mean /= N1_RANKS
+        scale = float(mean.abs().max()) or 1.0
+        want = C.ring_allreduce_plain(stacked).div_(N1_RANKS)
+        del stacked
+        for r, res in enumerate(ranks):
+            w = want[r].to(b.dtype)
+            exact[r] = exact[r] and leaf_digest(w) == res["digests"][path]
+            worst[r] = max(worst[r], float((w.double() - mean).abs().max())
+                           / scale)
+        del want, mean, w
+    replay_s = time.perf_counter() - t0
+    del base
+    for r in range(N1_RANKS):
+        check.true(f"N1 rank {r}: the pod sync is not bit for bit the "
+                   f"ring's plain replay", exact[r])
+        check.true(f"N1 rank {r}: {worst[r]} of the mean's absmax, bound "
+                   f"{N1_BOUND}", worst[r] < N1_BOUND)
+    return {"mesh": [N1_RANKS, 1, 1], "model": N_ARCH, "reduced": [],
+            "delta": N1_DELTA, "param_bytes": ranks[0]["param_bytes"],
+            "leaves": len(ranks[0]["digests"]),
+            "seconds": [r["seconds"] for r in ranks],
+            "collective_s": [r["collective_s"] for r in ranks],
+            "staged_bytes": [r["staged_bytes"] for r in ranks],
+            "bit_exact_vs_plain": exact, "worst_err_over_absmax": worst,
+            "replay_s": replay_s,
+            "rank_peak_bytes": _rank_peaks(check, "N1", ranks),
+            "spawn_s": ranks[0]["spawn_s"]}
+
+
+def run_n2(dev, check, rows) -> dict:
+    from repro_torch.models import moe
+    cfg = n2_config()
+    d = cfg.d_model
+    # the reference: every expert on one process, each rank's tokens
+    layer = n2_moe_layer(cfg, dev)
+    refs = []
+    for r in range(N2_RANKS):
+        x = n2_tokens(r, cfg, dev)
+        with Tap(moe, "_slots", lambda a, kw, o: (a[1].cpu(), o.cpu())) as t:
+            y, _ = moe._dispatch_combine(cfg, x.reshape(-1, d), layer)
+        refs.append((y.reshape(x.shape).cpu(), *t.calls[0]))
+        del x, y
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    del layer
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("N2", N2_RANKS)
+    out = {"model": LM_ARCH, "reduced": ["n_layers 61 → 1: one MoE layer"],
+           "tokens_per_rank": LM_BATCH * LM_PROMPT,
+           "reference_peak_bytes": ref_peak, "tolerance_bf16_ulps": N2_ULPS}
+    for kind in ("ep", "tp"):
+        worst, info = 0.0, []
+        for r, res in enumerate(ranks):
+            got = res[kind]
+            want, ids, dst = refs[got["rows_of"]]
+            check.true(f"N2 {kind} rank {r}: routing ids differ",
+                       torch.equal(got["ids"], ids))
+            check.true(f"N2 {kind} rank {r}: dispatch slots differ",
+                       torch.equal(got["dst"], dst))
+            check.true(f"N2 {kind} rank {r}: launches {got['launches']}, "
+                       f"want K7 and K3 once", got["launches"] ==
+                       {"K7": 1, "K3": 1})
+            g, w = got["y"].float(), want.float()
+            row = w.abs().amax(dim=-1, keepdim=True)
+            ratio = float(((g - w).abs() / (row * 2.0 ** -8)).max())
+            worst = max(worst, ratio)
+            info.append({k: got[k] for k in ("launches", "seconds",
+                                              "collective_s", "staged_bytes",
+                                              "expert_bytes", "peak_bytes")})
+        check.true(f"N2 {kind}: outputs {worst} bf16 ulps (at each row's "
+                   f"max) from the one-process layer, bound {N2_ULPS}",
+                   worst <= N2_ULPS)
+        out[kind] = {"mesh": ranks[0][kind]["mesh"], "worst_ulps": worst,
+                     "ranks": info}
+    out["rank_peak_bytes"] = _rank_peaks(check, "N2", ranks)
+    out["spawn_s"] = ranks[0]["spawn_s"]
+    # K7 and K3 at the path's shapes (router logits, slot scan)
+    x = torch.from_numpy(np.random.default_rng(SEED + 57).standard_normal(
+        ROUTER_SHAPE, dtype=np.float32)).to(dev)
+    vals, _ = tk.K7(x, ROUTER_K, 512)
+    pv, _ = tk.topk_plain(tk.pad_to(x, 512), ROUTER_K)
+    rows.append(topk_row(
+        f"N2 topk {ROUTER_SHAPE} in place of 512 float32 k={ROUTER_K} "
+        f"(router on each rank's tokens, EP and TP)",
+        ranks[0]["ep"]["launches"]["K7"] + ranks[0]["tp"]["launches"]["K7"],
+        max_abs(vals, pv), x, ROUTER_K, 512,
+        launches_counted_in="phase N2, one rank (EP and TP calls)"))
+    e, tk_ = ROUTER_SHAPE[1], ROUTER_SHAPE[0] * ROUTER_K
+    ids = torch.randint(0, e, (tk_,), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 58))
+    x3 = torch.nn.functional.one_hot(ids.long(), e).float().T.contiguous()
+    got3 = ps.prefix_sum_kernel(x3)
+    plain3 = ps.prefix_sum_kernel(x3, interpret=True)
+    rows.append(entry(
+        f"N2 prefix_sum {tuple(x3.shape)} float32 (router slots on each "
+        f"rank's tokens)",
+        ranks[0]["ep"]["launches"]["K3"] + ranks[0]["tp"]["launches"]["K3"],
+        max_abs(got3, plain3),
+        time_ms(lambda: ps.prefix_sum_kernel(x3)),
+        time_ms(lambda: ps.prefix_sum_kernel(x3, interpret=True), reps=5),
+        8 * x3.numel(), x3.numel(), time_ms(lambda: torch.cumsum(x3, 1)),
+        kernel="K3", block=list(ps.block_shape(*x3.shape)),
+        launches_counted_in="phase N2, one rank (EP and TP calls)"))
+    del x, vals, pv, x3, got3, plain3
+    return out
+
+
+def run_n3(dev, check, rows) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(N_ARCH)
+    data = SyntheticLMData(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, SEED + 55)
+    batches = [data.host_batch(i) for i in range(N3_STEPS)]
+    # the reference, on one process: the same two steps with the batch
+    # in the ranks' row blocks (grad_accum = N3_RANKS: microbatch r is
+    # rank r's rows, their gradients summed in float32), each step's
+    # gradient as it enters the clip; and, for the record, each step's
+    # gradient of the whole batch at once (phase L's path), at the init
+    # params, which step 1 sees too (lr(0) = 0)
+    state = api.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 30), dev)
+    whole = []
+    for b in batches:
+        g, m = api.make_grad_fn(cfg)(state["params"], to_device(b, dev))
+        whole.append(({p: t.cpu() for p, t in tree_items(g)},
+                      float(m["loss"])))
+        del g, m
+    step_fn = api.make_train_step(cfg, grad_accum=N3_RANKS)
+    ref_steps, ref_grads, ref_gmax = [], [], []
+    for i, b in enumerate(batches):
+        t0 = time.perf_counter()
+        with Tap(api, "clip_by_global_norm", lambda a, kw, o: a[0]) as tap:
+            state, metrics = step_fn(state, to_device(b, dev))
+        torch.cuda.synchronize()
+        split = dict(tree_items(tap.calls[0]))
+        del tap
+        gmax = {p: float(g.abs().max()) for p, g in split.items()}
+        ref_steps.append({
+            "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "seconds": time.perf_counter() - t0,
+            "whole_batch_loss": whole[i][1],
+            "whole_batch_vs_split_ratio_by_leaf": {
+                p: float((whole[i][0][p].to(dev).float() - g).abs().max())
+                / (gmax[p] or 1.0) for p, g in split.items()}})
+        ref_grads.append({p: g.cpu() for p, g in split.items()})
+        ref_gmax.append(gmax)
+        del split
+    del whole
+    ref_path = ROOT / "build" / "n3_reference.pt"
+    torch.save({"params": {path: t.cpu() for path, t in
+                           tree_items(state["params"])},
+                "grads": ref_grads, "gmax": ref_gmax}, ref_path)
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    del state, metrics, ref_grads
+    torch.cuda.empty_cache()
+    try:
+        ranks = spawn_ranks("N3", N3_RANKS, batches, str(ref_path))
+    finally:
+        ref_path.unlink(missing_ok=True)
+    n_l = cfg.n_layers
+    for r, res in enumerate(ranks):
+        s0 = res["steps"][0]
+        check.true(f"N3 rank {r} step 0: loss {s0['loss']} vs "
+                   f"{ref_steps[0]['loss']}, rtol {N3_LOSS_RTOL}",
+                   abs(s0["loss"] - ref_steps[0]["loss"])
+                   <= N3_LOSS_RTOL * abs(ref_steps[0]["loss"]))
+        for i, st in enumerate(res["steps"]):
+            check.true(f"N3 rank {r} step {i}: grad norm {st['grad_norm']} "
+                       f"vs {ref_steps[i]['grad_norm']}, rtol "
+                       f"{N3_GNORM_RTOL}",
+                       abs(st["grad_norm"] - ref_steps[i]["grad_norm"])
+                       <= N3_GNORM_RTOL * ref_steps[i]["grad_norm"])
+            check.true(f"N3 rank {r} step {i}: launches {st['launches']}, "
+                       f"want K4 {2 * n_l} forward and {n_l} reverse",
+                       st["launches"] == {"K4 forward": 2 * n_l,
+                                          "K4 reverse": n_l, "K7": 0,
+                                          "K3": 0})
+            bad = {k: v for k, v in st["grad_ratio_by_leaf"].items()
+                   if not v <= N3_GRAD_REL}
+            check.true(f"N3 rank {r} step {i}: reduced gradient leaves over "
+                       f"{N3_GRAD_REL} of the one-process gradient's max "
+                       f"|g|: {bad}", not bad)
+        check.true(f"N3 rank {r}: a param is not finite after step "
+                   f"{N3_STEPS - 1}", res["params_finite"])
+        check.true(f"N3 rank {r}: {res['params_outside_bound']} of "
+                   f"{res['params_held']} held params beyond one bf16 ulp "
+                   f"plus {N3_UPDATE_TOL}·lr of the one-process run's after "
+                   f"step {N3_STEPS - 1}", res["params_outside_bound"] == 0)
+        check.true(f"N3 rank {r}: {res['params_held']} of "
+                   f"{res['params_total']} params held, want at least half",
+                   res["params_held"] >= res["params_total"] / 2)
+    out = {"mesh": [N3_RANKS, 1], "model": N_ARCH, "reduced": [],
+           "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "reference_steps": ref_steps, "reference_peak_bytes": ref_peak,
+           "grad_bound_of_max": N3_GRAD_REL,
+           "update_tol_lr": N3_UPDATE_TOL,
+           "ranks": [{"steps": res["steps"],
+                      "worst_grad_ratio": [max(st["grad_ratio_by_leaf"]
+                                               .values())
+                                           for st in res["steps"]],
+                      "params_held": res["params_held"],
+                      "params_held_share": res["params_held"]
+                      / res["params_total"],
+                      "params_outside_bound": res["params_outside_bound"],
+                      "params_share_beyond_1ulp": res["params_beyond_1ulp"]
+                      / res["params_total"],
+                      "worst_beyond_ulp_over_lr":
+                          res["worst_beyond_ulp_over_lr"],
+                      "lr_last_step": res["lr_last_step"],
+                      "shard_bytes": res["shard_bytes"]} for res in ranks],
+           "rank_peak_bytes": _rank_peaks(check, "N3", ranks),
+           "rank_peak_limit_bytes": N_RANK_PEAK["N3"],
+           "spawn_s": ranks[0]["spawn_s"]}
+    shape = (TRAIN_BATCH // N3_RANKS, TRAIN_SEQ // cfg.ssm_chunk,
+             cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    out["k4_at_rank_shape"] = hold_train_scan(
+        dev, check, rows, shape, ranks[0]["steps"][-1]["launches"],
+        label="N3", counted_in="a phase N3 FSDP step on one rank (48 layers)")
+    return out
+
+
+def run_n4(dev, check, rows) -> dict:
+    from repro_torch.distributed.pipeline import bubble_fraction
+    cfg = get_config(N_ARCH)
+    rng = np.random.default_rng(SEED + 59)
+    tokens = rng.integers(0, cfg.vocab, (N4_MICRO, 1, N4_SEQ)).astype(
+        np.int64)
+    # the reference: each microbatch through the 48 layers on one process
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 53), dev)
+    positions = torch.arange(N4_SEQ, dtype=torch.int32, device=dev)
+    refs = []
+    with torch.no_grad():
+        for t in tokens:
+            x = M._embed(cfg, params, {"tokens": torch.from_numpy(t).to(dev)})
+            for i in range(cfg.n_layers):
+                x, _ = M.block(cfg, M._layer(params["layers"], i), x,
+                               positions)
+            refs.append(x.cpu())
+    del params, x
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("N4", N4_STAGES, tokens)
+    last = ranks[-1]["outs"]
+    same = torch.equal(last, torch.stack(refs))
+    check.true("N4: the last stage's outputs are not bit-identical to the "
+               "one-process forward", same)
+    per = cfg.n_layers // N4_STAGES
+    for r, res in enumerate(ranks):
+        check.true(f"N4 stage {r}: K4 {res['K4']} launches over "
+                   f"{res['active_ticks']} active ticks, want {per} each of "
+                   f"{N4_MICRO}", res["K4"] == per * N4_MICRO
+                   and res["active_ticks"] == N4_MICRO)
+    # K4 at a stage's shape
+    shape = (1, N4_SEQ // cfg.ssm_chunk, cfg.ssm_heads, cfg.ssm_headdim,
+             cfg.ssm_state)
+    a, s = ssd_inputs(SEED + 60, shape[:3], shape[3:], dev)
+    got = K4.state_scan(a, s, 1)
+    plain = ps.chunk_scan_state_kernel(a, s, 1, interpret=True)
+    br, bc = ps.block_shape(s.numel() // shape[1], shape[1])
+    worst = hold_statescan(check, "N4 K4 at a stage's shape", got, plain, a,
+                           s, bc)
+    n = s.numel()
+    rows.append(entry(
+        f"N4 chunk_scan_state {shape} float32 in place (a GPipe stage's "
+        f"layer)", ranks[0]["K4"], max_abs(got, plain),
+        time_ms(lambda: K4.state_scan(a, s, 1)),
+        time_ms(lambda: ps.chunk_scan_state_kernel(a, s, 1, interpret=True),
+                reps=5),
+        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
+        max_abs_err_f64=worst,
+        launches_counted_in="phase N4, one stage (12 layers × 8 ticks)"))
+    del a, s, got, plain
+    return {"stages": N4_STAGES, "microbatches": N4_MICRO,
+            "tokens_per_microbatch": N4_SEQ, "model": N_ARCH, "reduced": [],
+            "bit_identical_to_one_process": same,
+            "bubble_fraction": bubble_fraction(N4_STAGES, N4_MICRO),
+            "ticks": ranks[0]["ticks"],
+            "idle_ticks": [r["idle_ticks"] for r in ranks],
+            "measured_idle_share": [r["idle_ticks"] / r["ticks"]
+                                    for r in ranks],
+            "K4_launches": [r["K4"] for r in ranks],
+            "seconds": [r["seconds"] for r in ranks],
+            "collective_s": [r["collective_s"] for r in ranks],
+            "staged_bytes": [r["staged_bytes"] for r in ranks],
+            "rank_peak_bytes": _rank_peaks(check, "N4", ranks),
+            "spawn_s": ranks[0]["spawn_s"]}
+
+
+def run_n5(dev, check, rows) -> dict:
+    ranks = spawn_ranks("N5", N5_RANKS)
+    for r, res in enumerate(ranks):
+        check.true(f"N5 rank {r}: results not bit-exact against their solo "
+                   f"K1 launches", res["bit_exact_vs_solo"])
+        check.true(f"N5 rank {r}: {res['K1']} K1 launches, want one "
+                   f"k1_batch_kernel", res["K1"] == 1)
+        check.true(f"N5 rank {r}: {res['n_lanes']} lanes, want "
+                   f"{N5_RANKS}", res["n_lanes"] == N5_RANKS)
+    check.true("N5: the ranks' placements differ",
+               all(r["placements"] == ranks[0]["placements"]
+                   for r in ranks))
+    # K1 at a rank's chunk: half the requests in one call_batch
+    arrays = make_inputs(SEED + 56, [N_SCHED_ITEM] * (2 * N_SCHED_ITEMS), dev)
+    half = N_SCHED_ITEMS // N5_RANKS
+    reqs = [(SCALE, x, b) for x, b in zip(arrays[:half],
+                                         arrays[N_SCHED_ITEMS:][:half])]
+    prog = isa.fuse("c0_scale", "c0_add").program
+    got = prog.call_batch(reqs)
+    plain = prog.call_batch(reqs, interpret=True)
+    x2 = torch.stack([r[1] for r in reqs])
+    b2 = torch.stack([r[2] for r in reqs])
+    n = N_SCHED_ITEM * half
+    rows.append(entry(
+        f"N5 sched lanes: call_batch {half}x scale+add on one rank",
+        ranks[0]["K1"], max(max_abs(g, p) for g, p in zip(got, plain)),
+        time_ms(lambda: prog.call_batch(reqs)),
+        time_ms(lambda: prog.call_batch(reqs, interpret=True)),
+        12 * n, 2 * n, time_ms(lambda: torch.add(b2, x2, alpha=SCALE)),
+        launches_counted_in="phase N5, one rank's scheduler run"))
+    del arrays, reqs, got, plain, x2, b2
+    return {"mesh": [N5_RANKS], "axis": "parts",
+            "requests": N_SCHED_ITEMS, "elements": N_SCHED_ITEM,
+            "K1_launches": [r["K1"] for r in ranks],
+            "placements": ranks[0]["placements"],
+            "seconds": [r["seconds"] for r in ranks],
+            "collective_s": [r["collective_s"] for r in ranks],
+            "staged_bytes": [r["staged_bytes"] for r in ranks],
+            "rank_peak_bytes": _rank_peaks(check, "N5", ranks),
+            "spawn_s": ranks[0]["spawn_s"]}
+
+
+def run_n6(dev, check, rows) -> dict:
+    import tempfile
+    build = ROOT / "build"
+    small = ["--reduced", "--batch", "4", "--seq", "64", "--log-every", "2"]
+    serves = [["--arch", "kimi-k2-1t", "--reduced", "--model-parallel", "2",
+               "--gen", "8", "--prompt-len", "32"],
+              ["--arch", "mamba2-1.3b", "--reduced", "--gen", "8",
+               "--prompt-len", "32"]]
+    alone = [_captured(serve.main, argv) for argv in serves]
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        four = spawn_ranks("N6", 4, [
+            ("train", ["--arch", arch, "--steps", "4", "--model-parallel",
+                       "2", "--ckpt-dir", os.path.join(d, arch),
+                       "--ckpt-every", "2", *small])
+            for arch in ("mamba2-1.3b", "kimi-k2-1t")] + [
+            ("train", ["--arch", "mamba2-1.3b", "--steps", "2",
+                       "--model-parallel", "2", "--pod-sync-every", "2",
+                       *small])])
+        two = spawn_ranks("N6", 2, [
+            ("train", ["--arch", arch, "--steps", "6", "--model-parallel",
+                       "1", "--ckpt-dir", os.path.join(d, arch),
+                       "--ckpt-every", "2", *small])
+            for arch in ("mamba2-1.3b", "kimi-k2-1t")] + [
+            ("serve", argv) for argv in serves])
+    texts = [r["text"] for r in four[0]["runs"]]
+    for t in texts:
+        check.true("N6 train.main on 4 ranks: no 2x2 mesh or no end",
+                   "mesh 2x2" in t and "done: final loss" in t)
+    for t in (r["text"] for r in two[0]["runs"][:2]):
+        check.true("N6 resume on 2 ranks: 'resumed from step 4' on a 2x1 "
+                   "mesh not printed", "resumed from step 4 on mesh 2x1" in t)
+    for i, ((_, want), mesh) in enumerate(zip(alone, ("1x2", "2x1"))):
+        for r, res in enumerate(two):
+            run = res["runs"][2 + i]
+            check.true(f"N6 serve {serves[i][1]} rank {r}: mesh {mesh} not "
+                       f"printed", f"mesh {mesh}" in run["text"])
+            check.true(f"N6 serve {serves[i][1]} rank {r}: greedy tokens "
+                       f"differ from one process's",
+                       np.array_equal(run["tokens"], np.asarray(want)))
+    return {"train_4_ranks": texts,
+            "resume_2_ranks": [r["text"] for r in two[0]["runs"][:2]],
+            "serve_2_ranks": [r["text"] for r in two[0]["runs"][2:]],
+            "rank_peak_bytes": _rank_peaks(check, "N6", four + two),
+            "spawn_s": [four[0]["spawn_s"], two[0]["spawn_s"]]}
+
+
+def run_phase_n(dev, check, rows):
+    """The device mesh on the one card: ranks are processes that share
+    it, joined by gloo through pinned host buffers (every collective's
+    time here is host-staged, not NVLink's). N1 pod sync, N2 MoE EP and
+    TP at Kimi-K2's widths, N3 FSDP training of Mamba2-1.3B, N4 GPipe,
+    N5 sharded scheduler lanes, N6 the entry points; each case's ranks
+    run together, the cases one after another. A rank that raises fails
+    the spawn and the phase."""
+    out = {"card": CARD, "transport": "gloo over loopback, CUDA tensors "
+           "staged through pinned host buffers; every rank on cuda:0"}
+    for name, fn in (("N1", run_n1), ("N2", run_n2), ("N3", run_n3),
+                     ("N4", run_n4), ("N5", run_n5), ("N6", run_n6)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, check, rows)
+        out[name]["case_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"phase {name}: {out[name]['case_s']:.1f} s", file=sys.stderr,
+              flush=True)
+    print(json.dumps({"distributed": out}, default=str), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -2669,7 +3598,7 @@ def main() -> int:
                         ("G", run_phase_g), ("H", run_phase_h),
                         ("I", run_phase_i), ("J", run_phase_j),
                         ("K", run_phase_k), ("L", run_phase_l),
-                        ("M", run_phase_m)):
+                        ("M", run_phase_m), ("N", run_phase_n)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

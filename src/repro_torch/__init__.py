@@ -1,4 +1,4 @@
-"""repro_torch — the PyTorch + CUDA/Triton port of ``repro`` for one H100.
+"""repro_torch — the PyTorch + CUDA/Triton port of ``repro`` for the H100.
 
 Mirrors the JAX package's layout (``repro/core/program.py`` ↔
 ``repro_torch/core/program.py``) and imports nothing of it. Every kernel
@@ -11,6 +11,8 @@ generated Triton kernel K1, geometry negotiation, plan cache),
 ``kernels`` (every instruction, K1 and K3–K8), ``memhier``, ``graph``,
 ``regions``, ``sched``, ``obs`` (spans, metrics, drift, blame, tail
 sampling, SLOs), ``configs``, ``models`` (every family) and
-``launch.serve``. Not yet: training, ``distributed/``, the roofline and
-dry-run tools (``ROADMAP.md`` Queue 1).
+``launch`` (the server, the trainer, the cells' specs and the mesh),
+training (``optim``, ``data``, ``checkpoint``) and ``distributed``
+(sharding rules, collectives with the int8 ring, GPipe). Not yet: the
+roofline and dry-run tools (``ROADMAP.md`` Queue 1).
 """

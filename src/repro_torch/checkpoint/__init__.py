@@ -1,2 +1,2 @@
 from .ckpt import (CheckpointManager, latest_step, load_checkpoint, restore,
-                   save_checkpoint)
+                   restore_sharded, save_checkpoint)

@@ -12,9 +12,12 @@ initialised), and can run in a background thread; a preemption signal
 handler forces a synchronous save.
 
 Loaded leaves are CPU tensors (numpy has no bfloat16);
-:func:`restore` places them on a device (the reference's
-``restore_sharded`` places them on a mesh, which waits for
-``distributed/``).
+:func:`restore` places them on a device, and :func:`restore_sharded`
+keeps each rank's shard of them on a mesh (any mesh whose axes divide
+the dims: the elastic restart). A sharded tree is saved whole: the
+``CheckpointManager`` of a mesh gathers each leaf to its logical array
+before rank 0 writes, so the format does not change and a checkpoint of
+a sharded run restores in the reference, and the other way round.
 """
 from __future__ import annotations
 
@@ -77,9 +80,9 @@ def save_checkpoint(directory: str, step: int, tree,
     """Write step checkpoint; returns final path. Call on every process —
     only rank 0 writes."""
     final = os.path.join(directory, f"step_{step:08d}")
-    items = [(name, *_host(leaf)) for name, leaf in _flatten_with_names(tree)]
     if _rank() != 0:
         return final
+    items = [(name, *_host(leaf)) for name, leaf in _flatten_with_names(tree)]
     os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=".tmp_")
     manifest = {"step": step, "leaves": [], "extra": extra or {}}
@@ -143,6 +146,29 @@ def load_checkpoint(directory: str, step: Optional[int] = None,
     return leaves, manifest
 
 
+def _check_place(x: torch.Tensor, t, device) -> torch.Tensor:
+    if (tuple(x.shape), x.dtype) != (tuple(t[0]), t[1]):
+        raise ValueError(f"leaf {tuple(x.shape)} {x.dtype} != template "
+                         f"{tuple(t[0])} {t[1]}")
+    return x.to(device)
+
+
+def restore_sharded(directory: str, template, specs, mesh, device="cuda",
+                    step=None):
+    """Elastic restore: load into ``template``'s structure (nested dicts
+    of (shape, dtype)) and keep this rank's shard of each logical leaf
+    (``specs`` on ``mesh``) on ``device``. Returns (tree, manifest)."""
+    from repro_torch.distributed.sharding import local_shard
+    tree, manifest = load_checkpoint(directory, step, template)
+
+    def place(x, t, spec):
+        if isinstance(x, dict):
+            return {k: place(x[k], t[k], spec[k]) for k in x}
+        _check_place(x, t, "cpu")
+        return local_shard(x, spec, mesh).contiguous().to(device)
+    return place(tree, template, specs), manifest
+
+
 def restore(directory: str, template, device, step=None):
     """Load into the structure of ``template`` (nested dicts of (shape,
     dtype) pairs, as ``launch.api.make_train_state_abstract`` gives) and
@@ -153,10 +179,7 @@ def restore(directory: str, template, device, step=None):
     def place(x, t):
         if isinstance(x, dict):
             return {k: place(x[k], t[k]) for k in x}
-        if (tuple(x.shape), x.dtype) != (tuple(t[0]), t[1]):
-            raise ValueError(f"leaf {tuple(x.shape)} {x.dtype} != template "
-                             f"{tuple(t[0])} {t[1]}")
-        return x.to(device)
+        return _check_place(x, t, device)
     return place(tree, template), manifest
 
 
@@ -168,15 +191,27 @@ class CheckpointManager:
     the most recent state handed to observe();
     remove_preemption_handler() puts the replaced handlers back and lets
     go of that state.
+
+    With ``specs`` and a ``mesh`` of more than one rank the trees handed
+    to it are shards, and a save is a collective: it walks the leaves in
+    order, gathers each to its logical array, and only rank 0 copies it
+    to the host and writes. Every rank must save at the same steps, so
+    the preemption handler only notes the signal; :meth:`save_if_preempted`,
+    which the training loop calls on every rank after each step, agrees
+    on it over the mesh (an all-reduce of the flag) and then every rank
+    saves together at that step boundary.
     """
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, specs=None, mesh=None):
         self.directory = directory
         self.keep = keep
+        self.specs, self.mesh = specs, mesh
+        self._sharded = mesh is not None and mesh.size > 1
         self._thread: Optional[threading.Thread] = None
         self._last: Optional[tuple] = None
         self._lock = threading.Lock()
         self._replaced: dict = {}
+        self._preempted = False
 
     def wait(self):
         if self._thread is not None:
@@ -185,7 +220,7 @@ class CheckpointManager:
 
     def save_async(self, step: int, tree, extra: Optional[dict] = None):
         # snapshot synchronously (a copy to the host), write in background
-        host_tree = _host_copy(tree)
+        host_tree = self._host_tree(tree)
         self.wait()
 
         def _write():
@@ -195,20 +230,65 @@ class CheckpointManager:
         self._thread = threading.Thread(target=_write, daemon=True)
         self._thread.start()
 
+    def _host_tree(self, tree):
+        """The logical tree on the host: on a mesh, each leaf gathered in
+        turn (one logical leaf on the device at a time) and kept only on
+        rank 0, the others keeping None (they write nothing)."""
+        if not self._sharded:
+            return _host_copy(tree)
+        from repro_torch.distributed.sharding import gather
+        keep = _rank() == 0
+
+        def full(x, spec):
+            if isinstance(x, dict):
+                return {k: full(x[k], spec[k]) for k in sorted(x)}
+            with torch.no_grad():
+                g = gather(x, spec, self.mesh)
+            return g.detach().to("cpu", copy=True) if keep else None
+        return full(tree, self.specs)
+
     def observe(self, step: int, tree, extra: Optional[dict] = None):
         with self._lock:
             self._last = (step, tree, extra)
 
+    def _save_last(self):
+        with self._lock:
+            last = self._last
+        if last is not None:
+            step, tree, extra = last
+            self.wait()
+            save_checkpoint(self.directory, step, self._host_tree(tree),
+                            extra, self.keep)
+
     def install_preemption_handler(self, signals=(signal.SIGTERM,)):
         def handler(signum, frame):
-            with self._lock:
-                if self._last is not None:
-                    step, tree, extra = self._last
-                    self.wait()
-                    save_checkpoint(self.directory, step, tree, extra,
-                                    self.keep)
+            if self._sharded:    # the save is a collective: at the step's end
+                self._preempted = True
+            else:
+                self._save_last()
         for s in signals:
             self._replaced.setdefault(s, signal.signal(s, handler))
+
+    def save_if_preempted(self) -> bool:
+        """On a mesh, whether any rank was signalled since the last call
+        (every rank calls it at the same step boundary; the flag's
+        all-reduce is a collective); if one was, every rank saves the
+        state handed to :meth:`observe`, synchronously. False, with no
+        collective, off a mesh, where the handler saves at once."""
+        if not self._sharded:
+            return False
+        from repro_torch.distributed import collectives as C
+        with self._lock:
+            last = self._last
+        dev = (_flatten_with_names(last[1])[0][1].device if last is not None
+               else "cpu")
+        flag = torch.tensor([float(self._preempted)], device=dev)
+        C.all_reduce_max_(flag, self.mesh.group(self.mesh.axis_names))
+        self._preempted = False
+        if not float(flag[0]):
+            return False
+        self._save_last()
+        return True
 
     def remove_preemption_handler(self):
         for s, previous in self._replaced.items():

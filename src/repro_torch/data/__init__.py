@@ -1,1 +1,2 @@
-from .pipeline import SyntheticLMData, TokenFileData, to_device
+from .pipeline import (SyntheticLMData, TokenFileData, make_global_batch,
+                       to_device)

@@ -1,1 +1,2 @@
-# Entry points of the port: serve.py (prefill + decode on one device).
+# Entry points of the port: serve.py (prefill + decode), train.py (the
+# trainer), api.py (steps and the cells' specs), mesh.py (device meshes).

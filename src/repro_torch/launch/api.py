@@ -1,10 +1,11 @@
-"""Step builders and abstract input specs (``src/repro/launch/api.py``,
-on one device).
+"""Step builders, abstract input specs and sharding specs for every cell
+(``src/repro/launch/api.py``).
 
 For each (arch × shape): the function an entry point runs (the train step,
-prefill, the serve step) and the shapes and dtypes of its inputs.
-``build_cell`` / ``lower_cell`` (the sharded cells of the dry run) wait
-for ``distributed/`` and the dry run.
+prefill, the serve step), the shapes and dtypes of its inputs, their
+logical axes and, on a mesh, their specs (:func:`build_cell`).
+``lower_cell`` lowers through XLA in the reference and waits for the dry
+run (ROADMAP Queue 1 step 7).
 
 The train step is functional, as the reference's: ``step(state, batch)
 → (new state, metrics)`` over ``{"params", "opt", "step"}`` (nested
@@ -12,17 +13,32 @@ dicts of tensors; ``step`` a 0-d int32 tensor), with gradients from
 autograd through :func:`repro_torch.models.model.loss_fn`, accumulated
 in float32 over ``grad_accum`` microbatches, clipped by global norm and
 applied by the config's optimizer.
+
+On a mesh (``make_train_step(cfg, mesh=, specs=)``) the state is each
+rank's shards and the batch its rows. The loss's gradient flows back
+through the per-layer gathers (their backward reduce-scatters) and the
+MoE's collectives; each shard's gradient is then summed over the ranks
+that hold the same shard and divided by the world's size — the gradient
+of the mean of the ranks' losses, which is the loss of the global batch
+(ranks that differ only in ``model`` hold the same rows and count once
+each in both). The global norm sums every shard once. Both optimizers
+update the shards alone: AdamW is elementwise, and Adafactor's factored
+row and column means and its update's RMS sum their shards' parts over
+the ranks that split the dims, so no rank holds a whole leaf.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding
 from repro_torch.models import model as M
-from repro_torch.models.params import (DTYPES, param_specs, params_from_numpy,
+from repro_torch.models.params import (DTYPES, abstract_params, logical_axes,
+                                       param_specs, params_from_numpy,
                                        tensor_from_numpy, tree_items,
                                        tree_map)
-from repro_torch.optim import clip_by_global_norm, get_optimizer
+from repro_torch.optim import AdamW, clip_by_global_norm, get_optimizer
 from repro_torch.optim.optimizers import tree_leaves
 
 # ---------------------------------------------------------------------------
@@ -48,6 +64,17 @@ def batch_abstract(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     return {"tokens": ((b, 1), torch.int32), "pos": ((), torch.int32)}
 
 
+def batch_logical(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The batch's logical dim names (the reference's)."""
+    key = "embeddings" if cfg.frontend != "none" else "tokens"
+    ax = ("batch", None, "act_embed")[:3 if key == "embeddings" else 2]
+    if shape.kind == "train":
+        return {key: ax, "targets": ("batch", None)}
+    if shape.kind == "prefill":
+        return {key: ax}
+    return {"tokens": ("batch", None), "pos": ()}
+
+
 # ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
@@ -65,6 +92,22 @@ def make_train_state_abstract(cfg: ModelConfig) -> dict:
     state = {"params": params, "opt": _optimizer(cfg).init(params),
              "step": torch.zeros((), dtype=torch.int32, device="meta")}
     return tree_map(lambda t: (tuple(t.shape), t.dtype), state)
+
+
+def train_state_logical(cfg: ModelConfig) -> dict:
+    pax = logical_axes(cfg)
+    return {"params": pax, "opt": _optimizer(cfg).state_logical_axes(pax),
+            "step": ()}
+
+
+def state_specs(cfg: ModelConfig, mesh, rules=None, opt_rules=None) -> dict:
+    """The train state's specs on ``mesh`` (the driver's: default rules;
+    :func:`build_cell` passes :func:`_rules`)."""
+    ax, ab = train_state_logical(cfg), make_train_state_abstract(cfg)
+    return {"params": sharding.tree_specs(ax["params"], ab["params"], mesh,
+                                          rules),
+            "opt": sharding.tree_specs(ax["opt"], ab["opt"], mesh, opt_rules),
+            "step": ()}
 
 
 def train_state_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
@@ -154,10 +197,44 @@ def _rebuild(tree, it):
     return next(it)
 
 
+def reduce_grads(grads: dict, specs: dict, mesh) -> dict:
+    """Each shard's gradient summed (in float32) over the ranks that hold
+    the same shard, over the world's size, in its own dtype."""
+    def one(g, spec):
+        acc = C.all_reduce_(g.float(), mesh.group(
+            sharding.replica_axes(spec, mesh)))
+        return (acc / mesh.size).to(g.dtype)
+    return tree_map(one, grads, specs)
+
+
+def sharded_clip(grads: dict, specs: dict, mesh, max_norm: float):
+    """``clip_by_global_norm`` of the logical gradient from its shards:
+    each shard's Σg² counted once over the ranks that hold it."""
+    sq = sum(torch.sum(torch.square(g.float()))
+             / mesh.axis_size(sharding.replica_axes(spec, mesh))
+             for g, spec in zip(tree_leaves(grads), tree_leaves(specs)))
+    n = torch.sqrt(C.all_reduce_(sq.reshape(1), mesh.group(
+        mesh.axis_names))[0])
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), n
+
+
+def _sharded_update(opt, grads, opt_state, params, step, specs, mesh):
+    if isinstance(opt, AdamW):          # elementwise: the shards alone
+        return opt.update(grads, opt_state, params, step)
+    return opt.update(grads, opt_state, params, step, specs, mesh)
+
+
 def make_train_step(cfg: ModelConfig, grad_accum: int = 0,
-                    clip_norm: float = 1.0):
+                    clip_norm: float = 1.0, mesh=None,
+                    specs: dict | None = None):
+    """``step(state, batch) → (new state, metrics)``; on a ``mesh`` of
+    more than one rank, over each rank's shards (``specs``: the state's,
+    :func:`state_specs`) and rows."""
     opt = _optimizer(cfg)
     grads_of = make_grad_fn(cfg, grad_accum)
+    if mesh is not None and mesh.size > 1:
+        return _sharded_step(opt, grads_of, clip_norm, mesh, specs)
 
     def step(state, batch):
         grads, metrics = grads_of(state["params"], batch)
@@ -165,6 +242,26 @@ def make_train_step(cfg: ModelConfig, grad_accum: int = 0,
         new_params, new_opt = opt.update(grads, state["opt"],
                                          state["params"], state["step"])
         metrics = dict(metrics)
+        metrics["grad_norm"] = gnorm
+        return {"params": new_params, "opt": new_opt,
+                "step": state["step"] + 1}, metrics
+
+    return step
+
+
+def _sharded_step(opt, grads_of, clip_norm, mesh, specs):
+    def step(state, batch):
+        world = mesh.group(mesh.axis_names)
+        with sharding.use(mesh, specs["params"]):
+            grads, metrics = grads_of(state["params"], batch)
+        grads = reduce_grads(grads, specs["params"], mesh)
+        metrics = {k: C.all_reduce_(v.float().reshape(1).clone(), world)[0]
+                   / mesh.size for k, v in metrics.items()}
+        grads, gnorm = sharded_clip(grads, specs["params"], mesh, clip_norm)
+        with torch.no_grad():
+            new_params, new_opt = _sharded_update(
+                opt, grads, state["opt"], state["params"], state["step"],
+                specs, mesh)
         metrics["grad_norm"] = gnorm
         return {"params": new_params, "opt": new_opt,
                 "step": state["step"] + 1}, metrics
@@ -187,3 +284,54 @@ def make_serve_step(cfg: ModelConfig):
         return M.decode_step(cfg, params, cache, batch["tokens"],
                              int(batch["pos"]))
     return fn
+
+
+# ---------------------------------------------------------------------------
+# cell assembly: (fn, abstract args, in/out specs)
+# ---------------------------------------------------------------------------
+
+def _rules(cfg: ModelConfig):
+    """(param_rules, opt_rules): fsdp shards both over data; zero2 keeps
+    params replicated (no per-layer gathers) but shards optimizer states
+    (one u-gather per step — ZeRO-2); off replicates both over data."""
+    if cfg.fsdp:
+        return None, None
+    if cfg.zero2:
+        return {"embed": [None]}, None
+    return {"embed": [None]}, {"embed": [None]}
+
+
+def _meta(tree):
+    return tree_map(lambda leaf: torch.empty(leaf[0], dtype=leaf[1],
+                                             device="meta"), tree)
+
+
+def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               grad_accum: int = 0):
+    """Returns (fn, abstract args as meta tensors, in specs, out specs,
+    donate_argnums) — the reference's cell, with spec trees (per-dim
+    tuples of mesh axes) in place of its NamedShardings. The train cell's
+    ``fn`` is the sharded train step on ``mesh``; prefill and decode are
+    the model's own (their params gathered per layer on a mesh)."""
+    pax = logical_axes(cfg)
+    params_abs = abstract_params(cfg)
+    batch_abs = batch_abstract(cfg, shape)
+    batch_ax = batch_logical(cfg, shape)
+    rules, opt_rules = _rules(cfg)
+    batch_sp = sharding.tree_specs(batch_ax, batch_abs, mesh, rules)
+    if shape.kind == "train":
+        state_sp = state_specs(cfg, mesh, rules, opt_rules)
+        fn = make_train_step(cfg, grad_accum=grad_accum, mesh=mesh,
+                             specs=state_sp)
+        in_sp = (state_sp, batch_sp)
+        return (fn, (_meta(make_train_state_abstract(cfg)), _meta(batch_abs)),
+                in_sp, (state_sp, None), (0,))
+    params_sp = sharding.tree_specs(pax, params_abs, mesh, rules)
+    cache_abs = M.abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    cache_sp = sharding.tree_specs(M.cache_logical_axes(cfg), cache_abs, mesh)
+    if shape.kind == "prefill":
+        return (make_prefill(cfg), (_meta(params_abs), _meta(batch_abs)),
+                (params_sp, batch_sp), (None, cache_sp), ())
+    return (make_serve_step(cfg),
+            (_meta(params_abs), _meta(cache_abs), _meta(batch_abs)),
+            (params_sp, cache_sp, batch_sp), (None, cache_sp), (1,))

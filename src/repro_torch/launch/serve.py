@@ -37,8 +37,16 @@ after a ``--sched`` run. The endpoint, the tracer and the plan cache
 (``--plan-cache``) are the process's for the run and are put back after
 it.
 
-Not accepted: ``--model-parallel``, which needs the device mesh of
-``distributed/`` (not ported yet).
+``--model-parallel M`` serves on ``make_elastic_mesh(model_parallel=M)``
+over the ranks of ``torch.distributed`` (started from the environment
+as the train driver does; a world of one is the trivial mesh) and prints
+``mesh <shape>`` as the reference does. Each rank draws only its shards
+of the params (``init_params(mesh=)``), which every layer gathers as the
+walk reaches it, serves its (pod, data) rows of the prompts, and the
+tokens are gathered on every rank (rank 0 prints them). ``--sched`` is
+kept; ``--slo-shed`` on more than one rank raises, since each rank's
+wall clock would shed other steps and the ranks' collectives would no
+longer meet.
 """
 from __future__ import annotations
 
@@ -51,7 +59,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.data.pipeline import batch_axes
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding
+from repro_torch.launch.mesh import make_elastic_mesh, mesh_name
 from repro_torch.models import model as M
+from repro_torch.models.params import (abstract_params, init_params,
+                                       logical_axes)
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator | None,
@@ -110,6 +124,7 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--prompt-len", type=int, default=64)
     p.add_argument("--gen", type=int, default=32)
+    p.add_argument("--model-parallel", type=int, default=1)
     p.add_argument("--temperature", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
@@ -200,29 +215,47 @@ def main(argv=None):
 
 
 def _serve(args, tracer, sampler, httpd):
+    from repro_torch.launch.train import init_world
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     cfg = dataclasses.replace(cfg, attn_impl="chunked")
+    init_world(args.device)
     device = torch.device(args.device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_elastic_mesh(model_parallel=args.model_parallel)
+    print(f"mesh {mesh_name(mesh)}")
+    if args.slo_shed and mesh.size > 1:
+        raise ValueError("--slo-shed sheds by each rank's wall clock; on "
+                         f"{mesh.size} ranks their collectives would not "
+                         "meet")
+    specs = sharding.tree_specs(logical_axes(cfg), abstract_params(cfg),
+                                 mesh)
     g = torch.Generator(device=device).manual_seed(args.seed)
-    params = M.init_params(cfg, g, device)
+    params = init_params(cfg, g, device, mesh, specs)
     prompts = torch.from_numpy(np.random.default_rng(args.seed).integers(
-        0, cfg.vocab, (args.batch, args.prompt_len))).to(device)
+        0, cfg.vocab, (args.batch, args.prompt_len)))
+    rows = batch_axes(mesh)
+    prompts = sharding.local_shard(prompts, (rows or None, None),
+                                   mesh).to(device)
 
-    if args.sched:
-        tok, cache, t_prefill = prefill(cfg, params, prompts, args.gen,
-                                        args.temperature, g)
-    else:
-        gen, t_prefill, dt = generate(cfg, params, prompts, args.gen,
-                                      args.temperature, g)
-    print(f"prefill {args.batch}×{args.prompt_len} in "
-          f"{t_prefill*1e3:.1f} ms "
-          f"({args.batch*args.prompt_len/t_prefill:.0f} tok/s)")
-    if args.sched:
-        gen, dt = _decode_scheduled(args, cfg, params, cache, tok, g)
+    with sharding.use(mesh, specs):
+        if args.sched:
+            tok, cache, t_prefill = prefill(cfg, params, prompts, args.gen,
+                                            args.temperature, g)
+        else:
+            gen, t_prefill, dt = generate(cfg, params, prompts, args.gen,
+                                          args.temperature, g)
+        print(f"prefill {args.batch}×{args.prompt_len} in "
+              f"{t_prefill*1e3:.1f} ms "
+              f"({args.batch*args.prompt_len/t_prefill:.0f} tok/s)")
+        if args.sched:
+            gen, dt = _decode_scheduled(args, cfg, params, cache, tok, g)
     print(f"decoded {args.gen} tokens × batch {args.batch} in "
           f"{dt*1e3:.1f} ms ({args.batch*(args.gen-1)/max(dt,1e-9):.0f} tok/s)")
+    if mesh.size > 1:
+        gen = C.gather_dim(gen.contiguous(), mesh.group(rows), 0)
     gen = gen.cpu().numpy()
     print("sample row:", gen[0][:16], "...")
     if tracer is not None and args.obs_trace:

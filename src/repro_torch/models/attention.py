@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops as kops
 
 from .layers import apply_rope, rmsnorm
@@ -63,8 +64,10 @@ def _chunked_attn(cfg: ModelConfig, q, k, v, q_pos, k_pos):
     """Online-softmax over q chunks: O(chunk·T) live logits."""
     b, s, h, hd = q.shape
     if cfg.attn_flat_heads:
-        k = k.repeat_interleave(h // k.shape[2], dim=2)
-        v = v.repeat_interleave(h // v.shape[2], dim=2)
+        k = constrain(k.repeat_interleave(h // k.shape[2], dim=2),
+                      ("batch", None, "q_heads", "head_dim"))
+        v = constrain(v.repeat_interleave(h // v.shape[2], dim=2),
+                      ("batch", None, "q_heads", "head_dim"))
     kvh = k.shape[2]
     g = h // kvh
     c = min(cfg.attn_chunk, s)

@@ -1,5 +1,14 @@
 """The LM: blocks, the stack of layers, the loss, prefill and decode
-(``src/repro/models/model.py``, on one device).
+(``src/repro/models/model.py``).
+
+On a mesh (:func:`repro_torch.distributed.sharding.use`) the params are
+each rank's shards and the batch its rows: every layer's leaves are
+gathered as the walk reaches the layer (:func:`_gathered`; the
+reference's FSDP, "gathered per layer"), in the forward, prefill, decode
+and remat's recompute, and the MoE runs expert- or tensor-parallel on
+its own shards (``moe.moe_layer``). Dense compute is not split over the
+``model`` axis (ROADMAP Queue 1 step 6b), so the results are those of
+the unsharded model on the rank's rows.
 
 Params and caches are nested dicts of tensors in the reference's layout:
 layer params stacked on a leading (L,) axis; the cache as (L, B, T, KV,
@@ -29,6 +38,7 @@ from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import isa
+from repro_torch.distributed import sharding
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -40,6 +50,41 @@ from .params import DTYPES, init_params, tree_map
 def _layer(tree: dict, i: int) -> dict:
     """Layer i's params (or cache) from the stacked (L, ...) leaves."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _layer_specs(specs: dict) -> dict:
+    """One layer's specs: the stacked leaves' specs without their
+    (unsharded) ``layers`` dim."""
+    return tree_map(lambda spec: spec[1:], specs)
+
+
+def _gathered(fn):
+    """``fn(p, ...)`` with the layer's params ``p`` gathered from their
+    shards when a mesh is active (:func:`sharding.use`); the MoE's
+    experts stay shards (``moe.moe_layer`` reshards them itself). Under
+    remat the gather runs inside the recompute, and its backward (the
+    reduce-scatter) once, in the recompute's backward."""
+    act = sharding.active()
+    if act is None:
+        return fn
+    mesh, specs = act
+    lspecs = _layer_specs(specs["layers"])
+
+    def run(p, *args):
+        return fn(sharding.gather_tree(p, lspecs, mesh, skip=("moe",)),
+                  *args)
+    return run
+
+
+def _top(params: dict) -> dict:
+    """The params with the embedding, final norm and unembedding gathered
+    when a mesh is active (the layers stay shards)."""
+    act = sharding.active()
+    if act is None:
+        return params
+    mesh, specs = act
+    return {k: v if k == "layers" else sharding.gather(v, specs[k], mesh)
+            for k, v in params.items()}
 
 
 def _layers(tree: dict, n: int) -> list[dict]:
@@ -82,7 +127,12 @@ def block(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
     """One transformer/ssm/hybrid block. Returns (x, aux)."""
     h = rmsnorm(x, p["norm1"])
     x = x + _mixer(cfg, p, h, positions)
-    return _ffn(cfg, p, x)
+    x, aux = _ffn(cfg, p, x)
+    return sharding.constrain(x, _residual_axes(cfg)), aux
+
+
+def _residual_axes(cfg: ModelConfig) -> tuple:
+    return ("batch", "seq_sp" if cfg.sp else None, "act_embed")
 
 
 # the non-batched matmuls: what ``dots_with_no_batch_dims_saveable`` keeps
@@ -122,7 +172,7 @@ def _remat(cfg: ModelConfig, fn):
 
 def stack(cfg: ModelConfig, layer_params: dict, x: torch.Tensor, positions,
           train: bool = False):
-    fn = functools.partial(block, cfg)
+    fn = _gathered(functools.partial(block, cfg))
     if train:
         fn = _remat(cfg, fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -134,14 +184,21 @@ def stack(cfg: ModelConfig, layer_params: dict, x: torch.Tensor, positions,
 
 def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     if "embeddings" in batch:            # stubbed VLM/audio frontend
-        return batch["embeddings"].to(DTYPES[cfg.act_dtype])
-    return embed_tokens(params["embed"],
-                        batch["tokens"]).to(DTYPES[cfg.act_dtype])
+        x = batch["embeddings"].to(DTYPES[cfg.act_dtype])
+    else:
+        x = embed_tokens(params["embed"],
+                         batch["tokens"]).to(DTYPES[cfg.act_dtype])
+    return sharding.constrain(x, ("batch", None, "act_embed"))
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, train: bool = False):
     """The stack's final hidden states (B, S, D) and the MoE aux loss;
     ``train`` rematerialises each block by ``cfg.remat``."""
+    return _forward(cfg, _top(params), batch, train)
+
+
+def _forward(cfg: ModelConfig, params: dict, batch: dict, train: bool):
+    """:func:`forward` on params whose top leaves are gathered."""
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     x, aux = stack(cfg, params["layers"], x, positions, train)
@@ -158,7 +215,8 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     MoE load-balance loss). Returns (loss, metrics {ce, z_loss, loss,
     moe_aux}). With ``cfg.ce_chunk`` dividing the sequence, the unembed
     and CE run chunk by chunk over the sequence (no (B, S, V) logits)."""
-    x, aux = forward(cfg, params, batch, train=True)
+    params = _top(params)
+    x, aux = _forward(cfg, params, batch, train=True)
     w = _unembed_w(cfg, params)
     s = x.shape[1]
     if cfg.ce_chunk and s % cfg.ce_chunk == 0:
@@ -201,11 +259,34 @@ def _abstract_layer_cache(cfg: ModelConfig, batch: int, seq_len: int):
     return c
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
-    """Zero stacked (L, ...) caches of :func:`_abstract_layer_cache`."""
-    return tree_map(lambda leaf: torch.zeros((cfg.n_layers,) + leaf[0],
-                                             dtype=leaf[1], device=device),
+def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+    """The stacked (L, ...) cache's leaves as (shape, dtype)."""
+    return tree_map(lambda leaf: ((cfg.n_layers,) + leaf[0], leaf[1]),
                     _abstract_layer_cache(cfg, batch, seq_len))
+
+
+def cache_logical_axes(cfg: ModelConfig) -> dict:
+    """The cache's logical dim names (the reference's)."""
+    axes = {}
+    if cfg.has_attention:
+        kvax = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        axes["k"] = kvax
+        axes["v"] = kvax
+    if cfg.has_ssm:
+        axes["conv"] = {
+            "x": ("layers", "batch", None, "ssm_inner"),
+            "B": ("layers", "batch", None, None),
+            "C": ("layers", "batch", None, None),
+        }
+        axes["state"] = ("layers", "batch", "ssm_heads", None, None)
+    return axes
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device="cuda"):
+    """Zero stacked (L, ...) caches of :func:`abstract_cache`."""
+    return tree_map(lambda leaf: torch.zeros(leaf[0], dtype=leaf[1],
+                                             device=device),
+                    abstract_cache(cfg, batch, seq_len))
 
 
 def grow_cache(cfg: ModelConfig, cache: dict, prefill_len: int,
@@ -262,10 +343,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     conv windows and SSM state are written into ``cache`` in place (the
     reference returns updated copies); the returned cache is the same
     dict."""
+    params = _top(params)
     x = embed_tokens(params["embed"], tokens).to(DTYPES[cfg.act_dtype])
+    blk = _gathered(functools.partial(_block_decode, cfg))
     for i in range(cfg.n_layers):
-        x = _block_decode(cfg, _layer(params["layers"], i), x,
-                          _layer(cache, i), pos)
+        x = blk(_layer(params["layers"], i), x, _layer(cache, i), pos)
     x = rmsnorm(x, params["final_norm"])
     logits = unembed(_unembed_w(cfg, params), x[:, 0], cfg.vocab)
     return logits, cache
@@ -287,18 +369,20 @@ def _block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
         outs.append(s)
     mix = outs[0] if len(outs) == 1 else (outs[0] + outs[1]) * 0.5
     x, _ = _ffn(cfg, p, x + mix)
-    return x, cache
+    return sharding.constrain(x, _residual_axes(cfg)), cache
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict):
     """Full-sequence pass building the decode cache.
 
     Returns (last-position logits (B, vocab) fp32, stacked cache)."""
+    params = _top(params)
     x = _embed(cfg, params, batch)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     caches = []
+    blk = _gathered(functools.partial(_block_prefill, cfg))
     for i in range(cfg.n_layers):
-        x, c = _block_prefill(cfg, _layer(params["layers"], i), x, positions)
+        x, c = blk(_layer(params["layers"], i), x, positions)
         caches.append(c)
     cache = tree_map(lambda *leaves: torch.stack(leaves), *caches)
     x = rmsnorm(x, params["final_norm"])
@@ -311,17 +395,17 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict):
 # ---------------------------------------------------------------------------
 
 class _Tree(nn.Module):
-    """A nested dict of tensors as parameters (leaves; trainable or
-    frozen) and submodules (sub-dicts), under the dict's own keys."""
+    """A nested dict of tensors as (frozen) parameters (leaves) and
+    submodules (sub-dicts), under the dict's own keys."""
 
-    def __init__(self, tree: dict, trainable: bool = False):
+    def __init__(self, tree: dict):
         super().__init__()
         for k, v in tree.items():
             if isinstance(v, dict):
-                self.add_module(k, _Tree(v, trainable))
+                self.add_module(k, _Tree(v))
             else:
                 self.register_parameter(k, nn.Parameter(
-                    v, requires_grad=trainable))
+                    v, requires_grad=False))
 
     def as_dict(self) -> dict:
         return {**self._parameters,
@@ -334,10 +418,9 @@ class LM(_Tree):
     weights carried with ``params_from_numpy`` map onto it directly."""
 
     def __init__(self, cfg: ModelConfig, params: dict | None = None, *,
-                 generator: torch.Generator | None = None, device="cuda",
-                 trainable: bool = False):
+                 generator: torch.Generator | None = None, device="cuda"):
         super().__init__(params if params is not None
-                         else init_params(cfg, generator, device), trainable)
+                         else init_params(cfg, generator, device))
         self.cfg = cfg
 
     @property

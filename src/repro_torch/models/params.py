@@ -9,12 +9,15 @@ per-layer specs get a leading (L,) axis. From it come the real params
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (local_shape, local_shard,
+                                              shard_rows, spec_axes)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -141,27 +144,113 @@ def _dtype(cfg: ModelConfig, spec: ParamSpec) -> torch.dtype:
     return DTYPES[spec.dtype or cfg.param_dtype]
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device="cuda") -> dict:
-    """Random params from ``generator`` (on ``device``), with the
-    reference's laws: N(0, 0.02) for the embedding, N(0, fan_in^-1/2) for
-    ``fanin`` leaves (fan_in = the second-to-last dim), ones and zeros.
-    Each leaf is drawn in place in its own dtype, so a full-width init
-    holds no fp32 temporary of an expert tensor. (torch's generator does
-    not give JAX's numbers; tests carry JAX's weights over with
-    :func:`params_from_numpy`.)"""
-    def mk(spec: ParamSpec) -> torch.Tensor:
-        t = torch.empty(spec.shape, dtype=_dtype(cfg, spec), device=device)
-        if spec.init == "zeros":
-            return t.zero_()
-        if spec.init == "ones":
-            return t.fill_(1)
-        if spec.init == "fanin":
-            fan = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-            return t.normal_(0.0, fan ** -0.5, generator=generator)
-        return t.normal_(0.0, 0.02, generator=generator)
+def logical_axes(cfg: ModelConfig) -> dict:
+    """The param tree's logical dim names (what the sharding rules read)."""
+    return tree_map(lambda s: s.logical, param_specs(cfg))
 
-    return tree_map(mk, param_specs(cfg))
+
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The param tree's leaves as (shape, dtype)."""
+    return tree_map(lambda s: (s.shape, _dtype(cfg, s)), param_specs(cfg))
+
+
+#: elements a block of :func:`init_params` draws at most (a block is at
+#: least one row of its leaf's first non-``layers`` axis)
+INIT_BLOCK = 1 << 22
+
+
+def _block_seed(seed: int, leaf: int, block: int) -> int:
+    return int(np.random.SeedSequence([seed, leaf, block]).generate_state(
+        1, np.uint64)[0] >> np.uint64(1))
+
+
+def _draw(cfg: ModelConfig, spec: ParamSpec, index: int, seed: int,
+          device, shard=None, mesh=None) -> torch.Tensor:
+    """Leaf ``index`` of the param tree (or, with ``shard`` and ``mesh``,
+    this rank's block of it). Each layer of a stacked leaf is drawn in
+    fixed blocks of rows along its first non-``layers`` axis, each block
+    from a generator of its own seeded from (seed, leaf, block), so a
+    shard's values do not depend on the mesh."""
+    dtype = _dtype(cfg, spec)
+    shape = spec.shape
+    shard = shard or (None,) * len(shape)
+    local = shape if mesh is None else local_shape(shape, shard, mesh)
+    out = torch.empty(local, dtype=dtype, device=device)
+    if spec.init == "zeros":
+        return out.zero_()
+    if spec.init == "ones":
+        return out.fill_(1)
+    std = 0.02
+    if spec.init == "fanin":
+        std = (shape[-2] if len(shape) >= 2 else shape[-1]) ** -0.5
+    stacked = spec.logical[0] == "layers"
+    lead = 1 if stacked else 0                  # leading (layers) dims
+    n_layers = shape[0] if stacked else 1
+    if lead >= len(shape):                      # a (L,) leaf: a block a layer
+        rows, row_shape, entry = 1, (), None
+    else:
+        rows, row_shape, entry = shape[lead], shape[lead + 1:], shard[lead]
+    per = max(1, -(-INIT_BLOCK // max(1, math.prod(row_shape))))
+    n_blocks = -(-rows // per)
+    r0, rn = (0, rows) if mesh is None else shard_rows(rows, entry, mesh)
+    rest = shard[lead + 1:]
+    sliced = mesh is not None and any(spec_axes(e) for e in rest)
+    gen = torch.Generator(device=device)
+    for layer in range(n_layers):
+        dst = out[layer] if stacked else out
+        for b in range(n_blocks):
+            lo, hi = b * per, min(rows, (b + 1) * per)
+            a, z = max(lo, r0), min(hi, r0 + rn)
+            if a >= z:
+                continue
+            gen.manual_seed(_block_seed(seed, index, layer * n_blocks + b))
+            if lead >= len(shape):
+                dst.normal_(0.0, std, generator=gen)
+                continue
+            if (a, z) == (lo, hi) and not sliced:   # in place, no temporary
+                dst[a - r0:z - r0].normal_(0.0, std, generator=gen)
+                continue
+            blk = torch.empty((hi - lo,) + row_shape, dtype=dtype,
+                              device=device).normal_(0.0, std, generator=gen)
+            blk = blk[a - lo:z - lo]
+            if sliced:
+                blk = local_shard(blk, (None,) + tuple(rest), mesh)
+            dst[a - r0:z - r0].copy_(blk)
+    return out
+
+
+def draw_leaf(cfg: ModelConfig, path: str, seed: int, device="cuda",
+              shard=None, mesh=None) -> torch.Tensor:
+    """Leaf ``path`` (dotted, e.g. ``"layers.moe.w_in"``) of the param
+    tree as :func:`init_params` makes it from ``seed``; with ``shard``
+    (its spec) and ``mesh``, this rank's shard of it."""
+    specs = dict(tree_items(param_specs(cfg)))
+    return _draw(cfg, specs[path], sorted(specs).index(path), seed, device,
+                 shard, mesh)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
+                device="cuda", mesh=None, specs: dict | None = None) -> dict:
+    """Random params seeded by ``generator``'s seed (on ``device``), with
+    the reference's laws: N(0, 0.02) for the embedding, N(0, fan_in^-1/2)
+    for ``fanin`` leaves (fan_in = the second-to-last dim), ones and
+    zeros. With a ``mesh`` and the param tree's ``specs`` each rank makes
+    only its shard, and the values are the same as on a world of one:
+    each leaf is drawn in blocks (:func:`_draw`), in its own dtype, so a
+    full-width init holds no fp32 temporary of an expert tensor.
+    :func:`draw_leaf` makes one leaf alone. (torch's generator does not
+    give JAX's numbers; tests carry JAX's weights over with
+    :func:`params_from_numpy`.)"""
+    seed = (generator.initial_seed() if generator is not None
+            else torch.initial_seed())
+
+    def build(sub, shards, prefix=""):
+        return {k: (build(v, shards and shards[k], f"{prefix}{k}.")
+                    if isinstance(v, dict) else
+                    draw_leaf(cfg, prefix + k, seed, device,
+                              shards[k] if shards else None, mesh))
+                for k, v in sub.items()}
+    return build(param_specs(cfg), specs if mesh is not None else None)
 
 
 def tensor_from_numpy(arr) -> torch.Tensor:
@@ -192,3 +281,12 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cuda") -> dict:
         return t.to(device)
 
     return tree_map(carry, specs, tree)
+
+
+def shard_from_numpy(tree: dict, specs: dict, mesh, device="cuda") -> dict:
+    """This rank's shards (per ``specs`` on ``mesh``) of a tree of numpy
+    arrays (params, or a whole train state), bit for bit."""
+    def one(arr, spec):
+        return local_shard(tensor_from_numpy(arr), spec, mesh).contiguous() \
+            .to(device)
+    return tree_map(lambda spec, arr: one(arr, spec), specs, tree)

@@ -10,8 +10,9 @@ oracle on CPU tensors, and K4's plain walk under ``interpret``.
 
 Decode is O(1): a (B, H, P, N) state update per token.
 
-The reference's sharding constraints (``constrain``) are dropped on one
-device. Its ``preferred_element_type=float32`` products on bf16
+The reference's sharding constraints are kept as ``constrain`` hooks,
+which leave the tensors as they are (dense compute is not split over a
+mesh here). Its ``preferred_element_type=float32`` products on bf16
 operands (``ssd_bf16``) become float32 products of the operands cast to
 float32, which is exact. For serving, the (B, C, Q, Q, H) intra-chunk
 tensors are built in place, one at a time: at Mamba2-1.3B's widths and
@@ -24,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops as kops
 
 from .layers import rmsnorm
@@ -78,6 +80,9 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     nc = s // q
 
     z, x, bc, cc, dt = _proj(cfg, p, u)
+    z = constrain(z, ("batch", None, "ssm_inner"))
+    x = constrain(x, ("batch", None, "ssm_inner"))
+    dt = constrain(dt, ("batch", None, "ssm_heads"))
     w = cfg.conv_width - 1
     # copies: a slice would keep the whole (B, S, ·) projection alive
     conv_cache = {"x": x[:, -w:].clone(), "B": bc[:, -w:].clone(),
@@ -121,6 +126,7 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
         w_intra = decay * g[..., None] * dtc[:, :, None]
     else:
         w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
+    w_intra = constrain(w_intra, ("batch", None, None, None, "ssm_heads"))
     del decay, g
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(), xc.float())
     del w_intra

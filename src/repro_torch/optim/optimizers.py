@@ -21,6 +21,9 @@ from typing import Callable
 
 import torch
 
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import reshard, spec_axes
+
 
 def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
@@ -142,41 +145,77 @@ class Adafactor:
             return {"v": a}
         return {"f": _map(ax, param_axes)}
 
-    def update(self, grads, state, params, step):
+    def update(self, grads, state, params, step, specs=None, mesh=None):
+        """With the train state's ``specs`` (``{"params", "opt"}``) and a
+        ``mesh``, the leaves are each rank's shards: a mean over a dim
+        that the mesh splits sums its shards' parts over the ranks that
+        hold them (the factored row and column means, the update's RMS),
+        so no rank holds a whole leaf."""
         lr = _scalar(self.lr, step)
         t = _f32(int(step)) + 1.0
         beta = float(1.0 - t ** (-self.decay))
+        sharded = mesh is not None and mesh.size > 1
 
-        def upd(g, p, f):
+        def upd(g, p, f, pspec, fspec):
+            def mean(x, spec, dim=None, keepdim=False):
+                return _mean(x, spec, mesh, dim, keepdim)
+
+            def to(x, a, b):        # from the layout of spec a to b's
+                return reshard(x, a, b, mesh) if sharded else x
             g = g.float()
             g2 = g * g + self.eps
             if p.ndim >= 2:
-                vr = beta * f["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-                vc = beta * f["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-                denom = (vr[..., None] / torch.mean(
-                    vr, dim=-1, keepdim=True)[..., None]) * vc[..., None, :]
+                rspec, cspec = pspec[:-1], pspec[:-2] + pspec[-1:]
+                vr = beta * f["vr"] + (1 - beta) * to(
+                    mean(g2, pspec, -1), rspec, fspec["vr"])
+                vc = beta * f["vc"] + (1 - beta) * to(
+                    mean(g2, pspec, -2), cspec, fspec["vc"])
+                r, c = to(vr, fspec["vr"], rspec), to(vc, fspec["vc"], cspec)
+                denom = (r[..., None] / mean(r, rspec, -1, keepdim=True)[
+                    ..., None]) * c[..., None, :]
                 u = g * torch.rsqrt(denom + self.eps)
                 nf = {"vr": vr, "vc": vc}
             else:
                 v = beta * f["v"] + (1 - beta) * g2
                 u = g * torch.rsqrt(v + self.eps)
                 nf = {"v": v}
-            rms = torch.sqrt(torch.mean(u * u))
+            rms = torch.sqrt(mean(u * u, pspec))
             u = u / torch.clamp(rms / self.clip_threshold, min=1.0)
             if self.weight_decay:
                 u = u + self.weight_decay * p.float()
             new_p = (p.float() - lr * u).to(p.dtype)
             return new_p, nf
 
-        def walk(g, p, f):
+        def walk(g, p, f, pspec, fspec):
             if isinstance(p, dict):
-                out = {k: walk(g[k], p[k], f[k]) for k in p}
+                out = {k: walk(g[k], p[k], f[k], pspec and pspec[k],
+                               fspec and fspec[k]) for k in p}
                 return ({k: o[0] for k, o in out.items()},
                         {k: o[1] for k, o in out.items()})
-            return upd(g, p, f)
+            if not sharded:         # one rank: no dim is split
+                pspec = (None,) * p.ndim
+                fspec = {k: (None,) * v.ndim for k, v in f.items()}
+            return upd(g, p, f, pspec, fspec)
 
-        new_p, new_f = walk(grads, params, state["f"])
+        new_p, new_f = walk(grads, params, state["f"],
+                            specs and specs["params"],
+                            specs and specs["opt"]["f"])
         return new_p, {"f": new_f}
+
+
+def _mean(x: torch.Tensor, spec, mesh, dim=None, keepdim=False):
+    """``torch.mean(x, dim)`` of the logical array whose shard (by
+    ``spec`` on ``mesh``) ``x`` is; ``dim`` None is every dim. A dim no
+    mesh axis splits takes the local mean as it is."""
+    dims = range(x.ndim) if dim is None else [dim % x.ndim]
+    axes = tuple(a for d in dims for a in spec_axes(spec[d]))
+    if not axes:
+        return torch.mean(x) if dim is None else torch.mean(
+            x, dim=dim, keepdim=keepdim)
+    n = math.prod(x.shape[d] for d in dims) * mesh.axis_size(axes)
+    part = torch.sum(x) if dim is None else torch.sum(x, dim=dim,
+                                                      keepdim=keepdim)
+    return C.all_reduce_(part.contiguous(), mesh.group(axes)) / n
 
 
 def get_optimizer(name: str, lr=None, total_steps: int = 10_000,

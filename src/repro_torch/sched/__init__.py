@@ -14,18 +14,22 @@ lanes run one after another, each coalesced batch ONE ``k1_batch_kernel``
 launch; Plan parts schedule individually, one K1 launch each), and
 :mod:`~repro_torch.sched.replay` records byte-stable JSONL traces whose
 replay reproduces the placements exactly — scheduling policies become
-benchmarkable offline like memhier traces. The device mesh of the JAX
-package (``sharded_program_call``) waits for ``distributed/``.
+benchmarkable offline like memhier traces. On a mesh
+(``Scheduler(mesh=, mesh_axis=)``) lanes are ranks, and
+``sharded_program_call`` runs each rank's chunk of a batch and
+all-gathers the results.
 """
 from .cost import CostModel, Estimate
 from .queue import Batch, RequestQueue, WorkItem, coalesce_key
 from .replay import (ReplayCost, TraceRecorder, placements_match, replay)
 from .scheduler import (POLICIES, EdfPolicy, FifoPolicy, Placement, Report,
-                        Scheduler, WeightedFairPolicy, sharded_program_call)
+                        Scheduler, WeightedFairPolicy, mesh_lane_count,
+                        sharded_program_call)
 
 __all__ = [
     "Batch", "CostModel", "EdfPolicy", "Estimate", "FifoPolicy",
     "POLICIES", "Placement", "ReplayCost", "Report", "RequestQueue",
     "Scheduler", "TraceRecorder", "WeightedFairPolicy", "WorkItem",
-    "coalesce_key", "placements_match", "replay", "sharded_program_call",
+    "coalesce_key", "mesh_lane_count", "placements_match", "replay",
+    "sharded_program_call",
 ]

@@ -7,13 +7,21 @@ front of the order onto the **lanes**, execute the round, and account
 time with the :class:`~repro_torch.sched.cost.CostModel` — predicted per item
 before the round, observed fed back after it.
 
-Lanes are the unit of concurrency. On one device they model async
-dispatch depth: a round's batches run one after another on the device
-(as the JAX package runs them), and the *virtual* clock charges the
-round the bandwidth-sharing contended makespan instead of assuming free
-overlap. The JAX package's multi-device mesh, where lanes map to
-devices through ``shard_map``, waits for the port of ``distributed/``:
-a ``mesh=`` raises ``NotImplementedError``.
+Lanes are the unit of concurrency:
+
+  * on one device they model async dispatch depth: a round's batches run
+    one after another on the device (as the JAX package runs them), and
+    the *virtual* clock charges the round the bandwidth-sharing
+    contended makespan instead of assuming free overlap;
+  * on a mesh (``Scheduler(mesh=, mesh_axis=)``, a
+    :class:`repro_torch.launch.mesh.Mesh`), lanes are the ranks along
+    ``mesh_axis``: every rank runs the same scheduler on the same
+    submissions, and a coalescible batch is dispatched through
+    :func:`sharded_program_call` — each rank runs its chunk of the
+    independent requests (one ``k1_batch_kernel`` on the kernel path)
+    and the results are all-gathered. A batch's observed seconds are the
+    slowest rank's (agreed by an all-reduce), so the ranks' cost models
+    and decisions stay in lockstep.
 
 Plans schedule at *part* granularity: :meth:`Plan.schedule` levels stop
 being a private loop — each level's parts are packed onto the lanes in
@@ -188,19 +196,72 @@ POLICIES = {"fifo": FifoPolicy, "edf": EdfPolicy, "wfq": WeightedFairPolicy}
 
 
 # ---------------------------------------------------------------------------
-# multi-device meshes
+# lanes over a mesh
 # ---------------------------------------------------------------------------
+
+def _mesh_axes(axis) -> tuple[str, ...]:
+    """Normalise a mesh-axis spec: a single name, or a tuple of names
+    for a multi-host lane mesh (e.g. ``("hosts", "devices")``)."""
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def mesh_lane_count(mesh, axis) -> int:
+    """Lanes a mesh provides over ``axis`` (product across a tuple of
+    axis names — lanes = hosts × devices on a multi-host mesh)."""
+    shape = dict(mesh.shape)
+    n = 1
+    for a in _mesh_axes(axis):
+        n *= shape[a]
+    return n
+
+
+def _stack(outs):
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack([o[i] for o in outs])
+                     for i in range(len(outs[0])))
+    return torch.stack(outs)
+
 
 def sharded_program_call(fused, operand_tuples, mesh, axis="parts",
                          chunk_call=None):
-    """Run N independent same-structure requests across a device mesh —
-    the JAX package's ``shard_map``-over-parts lane mapping. It waits
-    for the port of ``distributed/`` (ROADMAP Queue 1, item 15): on one
-    device the scheduler runs its lanes one after another instead."""
-    raise NotImplementedError(
-        "sharded_program_call needs the device mesh of distributed/, "
-        "not ported yet (ROADMAP Queue 1, item 15); schedule on one "
-        "device with mesh=None")
+    """Run N independent same-structure requests across the ranks of
+    ``mesh`` along ``axis``.
+
+    Every rank makes the same call with the same operands. N is padded
+    up to a multiple of the lane count by repeating the first request;
+    rank l (its row-major index along ``axis``: host-major on a tuple of
+    axes, matching the scheduler's lane→channel map) runs requests
+    [l·chunk, (l+1)·chunk) through ``chunk_call(list of operand tuples)
+    → list of results`` — e.g. ``Program.call_batch``, one
+    ``k1_batch_kernel`` launch — or, by default, the program's oracle
+    composition (``fused._ref``) item by item; the chunks' results are
+    all-gathered and the padding dropped. Returns the per-request
+    results in order, on every rank. (The reference's ``chunk_call`` is
+    per item, inside ``shard_map``; here it takes the rank's chunk.)"""
+    from repro_torch.distributed.collectives import gather_dim
+
+    if not isinstance(fused, FusedProgram):
+        raise TypeError("sharded_program_call needs a FusedProgram "
+                        f"(got {type(fused).__name__})")
+    items = [tuple(ops) for ops in operand_tuples]
+    if not items:
+        return []
+    axes = _mesh_axes(axis)
+    n_dev = mesh_lane_count(mesh, axes)
+    n_real = len(items)
+    items = items + [items[0]] * ((-n_real) % n_dev)
+    chunk = len(items) // n_dev
+    me = mesh.axis_index(axes)
+    mine = items[me * chunk:(me + 1) * chunk]
+    outs = (list(chunk_call(mine)) if chunk_call is not None
+            else [fused._ref(*it) for it in mine])
+    group = mesh.group(axes)
+    out = _stack(outs)
+    if isinstance(out, tuple):
+        out = tuple(gather_dim(o, group, 0) for o in out)
+        return [tuple(o[k] for o in out) for k in range(n_real)]
+    out = gather_dim(out, group, 0)
+    return [out[k] for k in range(n_real)]
 
 
 # ---------------------------------------------------------------------------
@@ -256,8 +317,6 @@ class Scheduler:
         if clock not in ("wall", "virtual"):
             raise ValueError(f"clock must be 'wall' or 'virtual', got "
                              f"{clock!r}")
-        if mesh is not None:
-            sharded_program_call(None, (), mesh, axis=mesh_axis)  # raises
         if plan_cache is not None:
             # fleet-shared persistent artifacts (DESIGN.md §14): point
             # this worker process at the shared cache dir so compiled
@@ -275,7 +334,10 @@ class Scheduler:
             self.policy = policy
         self.queue = queue
         self.cost = cost if cost is not None else CostModel()
-        self.n_lanes = max(1, int(n_lanes))
+        self.mesh = mesh
+        self.mesh_axis = mesh_axis
+        self.n_lanes = (mesh_lane_count(mesh, mesh_axis) if mesh is not None
+                        else max(1, int(n_lanes)))
         self._init_channels(n_channels, lane_channels)
         self.mode = mode
         self.clock = clock
@@ -328,9 +390,10 @@ class Scheduler:
         """Resolve the lane→HBM-channel map (DESIGN.md §18).
 
         Source priority: an explicit ``lane_channels`` table > an
-        explicit ``n_channels`` (round-robin ``lane % n``) > the cost
-        model hierarchy's :class:`~repro_torch.memhier.hierarchy.
-        ChannelModel` > single-channel. The result feeds the round's
+        explicit ``n_channels`` (round-robin ``lane % n``) > a
+        multi-host mesh (host-major: each host drains its own channel)
+        > the cost model hierarchy's :class:`~repro_torch.memhier.
+        hierarchy.ChannelModel` > single-channel. The result feeds the round's
         per-channel contended makespan and fluid finish times.
         """
         if lane_channels is not None:
@@ -348,6 +411,16 @@ class Scheduler:
         if n_channels is not None:
             n_ch = max(1, int(n_channels))
         else:
+            axes = _mesh_axes(self.mesh_axis)
+            if self.mesh is not None and len(axes) > 1:
+                # multi-host lane mesh: lanes are host-major (matching
+                # sharded_program_call), each host's HBM is a channel.
+                n_ch = dict(self.mesh.shape)[axes[0]]
+                per_host = self.n_lanes // max(n_ch, 1)
+                self.n_channels = max(1, n_ch)
+                self.lane_channels = [l // max(per_host, 1)
+                                      for l in range(self.n_lanes)]
+                return
             hier = self.cost.hierarchy
             n_ch = int(getattr(hier, "n_channels", 1)) if hier is not None \
                 else 1
@@ -413,6 +486,16 @@ class Scheduler:
         """Run one batch for real; returns per-item results."""
         mode = self._resolve_mode(batch.items[0].mode or self.mode, batch)
         prog = program_of(batch.target)
+        if self.mesh is not None and isinstance(batch.target, FusedProgram) \
+                and batch.key is not None:
+            chunk = None
+            if mode != "ref" and prog is not None:
+                def chunk(items):
+                    return prog.call_batch(items,
+                                           interpret=(mode == "interpret"))
+            return sharded_program_call(
+                batch.target, [it.operands for it in batch.items],
+                self.mesh, axis=self.mesh_axis, chunk_call=chunk)
         # coalescing is a kernel-path mechanism (one k1_batch_kernel);
         # ref-mode dispatch composes oracles per item instead.
         if batch.coalesced and prog is not None and mode != "ref":
@@ -429,6 +512,15 @@ class Scheduler:
             else:
                 outs.append(it.target(*it.operands))
         return outs
+
+    def _agreed(self, seconds: float) -> float:
+        """On a mesh, the slowest rank's seconds (every rank's)."""
+        if self.mesh is None or self.mesh.size == 1:
+            return seconds
+        from repro_torch.distributed.collectives import all_reduce_max_
+        t = torch.tensor([seconds], dtype=torch.float64)
+        return float(all_reduce_max_(t, self.mesh.group(
+            self.mesh.axis_names))[0])
 
     def _plan_virtual_duration(self, plan: Plan) -> Optional[float]:
         """Virtual seconds of one Plan item: its dependency levels packed
@@ -575,7 +667,7 @@ class Scheduler:
                 else:
                     out = self._dispatch_batch(b)
                     _block_until_ready(out)
-                dt = time.perf_counter() - t0
+                dt = self._agreed(time.perf_counter() - t0)
                 done += dt
                 observed.append(dt)
                 results.append(out)

@@ -419,10 +419,14 @@ def test_policy_and_mesh_errors():
         ts.Scheduler(ts.RequestQueue(), policy="srtf")
     with pytest.raises(ValueError, match="clock"):
         ts.Scheduler(ts.RequestQueue(), clock="sundial")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ts.Scheduler(ts.RequestQueue(), mesh=object())
-    with pytest.raises(NotImplementedError, match="distributed"):
-        ts.sharded_program_call(isa.fuse("c0_copy"), [], object())
+    from repro_torch.launch.mesh import Mesh
+    mesh = Mesh((1,), ("parts",))
+    assert ts.Scheduler(ts.RequestQueue(), mesh=mesh).n_lanes == 1
+    with pytest.raises(KeyError):
+        ts.Scheduler(ts.RequestQueue(), mesh=mesh, mesh_axis="lanes")
+    with pytest.raises(TypeError, match="FusedProgram"):
+        ts.sharded_program_call(prog_mod.Program, [], mesh)
+    assert ts.sharded_program_call(isa.fuse("c0_copy"), [], mesh) == []
 
 
 # ---------------------------------------------------------------------------

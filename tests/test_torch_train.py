@@ -265,21 +265,6 @@ def test_train_state_from_numpy_carries_every_leaf_bit_for_bit():
                                     "adamw" else "adamw"), tree, "cpu")
 
 
-def test_trainable_lm_takes_the_loss_gradient():
-    _, cfg = cfgs("mamba2_1p3b")
-    tp = tparams.init_params(cfg, torch.Generator().manual_seed(9), "cpu")
-    assert not any(p.requires_grad for p in M.LM(cfg, tp).parameters())
-    lm = M.LM(cfg, tp, trainable=True)
-    assert all(p.requires_grad for p in lm.parameters())
-    loss, _ = M.loss_fn(cfg, lm.params, small_batch(cfg, 9))
-    loss.backward()
-    want, _ = port_grads(cfg, tp, batch_np(cfg, 9))
-    got = {path: p.grad for path, p in lm.named_parameters()}
-    assert got.keys() == dict(tparams.tree_items(want)).keys()
-    for path, g in tparams.tree_items(want):
-        assert torch.equal(got[path], g), path
-
-
 def test_grad_accum_matches_one_batch_of_twice_the_size():
     _, cfg = cfgs("llama3_8b")
     tp = tparams.init_params(cfg, torch.Generator().manual_seed(3), "cpu")
@@ -466,9 +451,21 @@ def test_train_main_leaves_no_preemption_handler(tmp_path):
 
 
 def test_train_main_refuses_what_needs_the_mesh():
-    for flag in (["--model-parallel", "2"], ["--pod-sync-every", "5"]):
-        with pytest.raises(NotImplementedError, match="Queue 1 step 6"):
-            train.main(["--reduced", "--device", "cpu", *flag])
+    """On a world of one the mesh flags run on the trivial mesh (1×1, no
+    ``pod`` axis to sync, as in the reference); a mesh the world cannot
+    hold is refused."""
+    for flag in (["--model-parallel", "2"], ["--pod-sync-every", "1"]):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            loss = train.main(["--arch", "mamba2-1.3b", "--reduced",
+                               "--device", "cpu", "--steps", "2", "--batch",
+                               "2", "--seq", "16", "--log-every", "1", *flag])
+        assert "mesh 1x1 axes ('data', 'model') (1 devices)" in \
+            buf.getvalue()
+        assert np.isfinite(loss)
+    from repro_torch.launch.mesh import make_elastic_mesh
+    with pytest.raises(ValueError, match="the world 1"):
+        make_elastic_mesh(n_devices=2, model_parallel=2)
 
 
 def test_abstract_state_is_the_reference_state():
@@ -606,3 +603,68 @@ def test_smoke_train_grad_hold_rejects_a_broken_ssd_backward(
     grads, _ = carrying_grads(smoke, "mamba2_1p3b")
     ratios = smoke.grad_ratios(grads["interpret"], grads["ref"])
     assert max(ratios.values()) > 100 * smoke.TRAIN_GRAD_REL, ratios
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's phase N3 holds, on the CPU
+# ---------------------------------------------------------------------------
+
+def n3_steps(smoke, cfg, batches, grad_accum):
+    """Two train steps from one init (step 0 at lr 0, step 1 at lr(1)),
+    with each step's gradient as it enters the clip."""
+    state = api.init_train_state(cfg, torch.Generator().manual_seed(4),
+                                 "cpu")
+    step = api.make_train_step(cfg, grad_accum=grad_accum)
+    grads = []
+    for b in batches:
+        with smoke.Tap(api, "clip_by_global_norm",
+                       lambda a, kw, o: a[0]) as tap:
+            state, _ = step(state, b)
+        grads.append(dict(tparams.tree_items(tap.calls[0])))
+    return state["params"], grads
+
+
+def test_smoke_n3_holds_pass_a_split_batch_and_reject_faults(smoke):
+    """Phase N3's holds at Mamba2's reduced config in bf16, against the
+    reference of the phase (the batch in two row blocks, their gradients
+    summed in float32): the gradient of the whole batch at once, which
+    differs from it in rounding alone at this size, passes both holds;
+    a gradient of the wrong rows fails the gradient hold; params moved
+    by the wrong rows' gradient fail the param hold against the right
+    gradients; a NaN param fails."""
+    _, cfg = cfgs("mamba2_1p3b")
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                              act_dtype="bfloat16")
+    rng = np.random.default_rng(6)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 32))
+                                    .astype(np.int32))
+                for k in ("tokens", "targets")} for _ in range(2)]
+    wrong = [{k: torch.cat([v[:2], v[:2]]) for k, v in b.items()}
+             for b in batches]
+    ref_params, ref_grads = n3_steps(smoke, cfg, batches, 2)
+    ref = {"params": dict(tparams.tree_items(ref_params)),
+           "grads": ref_grads}
+    gmax = [{p: float(g.abs().max()) for p, g in gs.items()}
+            for gs in ref_grads]
+    pspecs = {p: (None,) * g.ndim for p, g in ref_grads[0].items()}
+    lr = float(api._optimizer(cfg).lr(1))
+    assert lr > 0
+
+    def holds(params, grads):
+        ratios = [smoke.n3_grad_errors(g, rg, gm, pspecs, None, "cpu")[1]
+                  for g, rg, gm in zip(grads, ref_grads, gmax)]
+        grad_ok = all(v <= smoke.N3_GRAD_REL for r in ratios
+                      for v in r.values())
+        return grad_ok, smoke.n3_hold_params(params, grads, ref, pspecs,
+                                             None, lr, "cpu")
+
+    whole_params, whole_grads = n3_steps(smoke, cfg, batches, 1)
+    grad_ok, held = holds(whole_params, whole_grads)
+    assert grad_ok and held["params_finite"]
+    assert held["params_outside_bound"] == 0
+    assert held["params_held"] >= held["params_total"] / 2
+    wrong_params, wrong_grads = n3_steps(smoke, cfg, wrong, 1)
+    assert not holds(wrong_params, wrong_grads)[0]
+    assert holds(wrong_params, whole_grads)[1]["params_outside_bound"] > 0
+    whole_params["embed"].view(-1)[0] = float("nan")
+    assert not holds(whole_params, whole_grads)[1]["params_finite"]
