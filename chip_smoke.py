@@ -173,10 +173,23 @@ Phases (inputs from numpy with a fixed seed):
      Kimi-K2 reduced, 4 steps with checkpoints, and with
      --pod-sync-every 2; the resume of both on 2 ranks (2×1);
      serve.main --model-parallel 2 (1×2) and on 2×1, against one
-     process's tokens. Prints one ``distributed`` JSON line (each case's
-     seconds, collective seconds, bytes staged through host, launches,
-     rank peaks) before the kernels line, whose rows gain K7 and K3 at
-     N2's router shapes, K4 at N3's and N4's and K1 at N5's chunk
+     process's tokens; serve.main --sched --slo-shed on 2×1 with a
+     --slo-ms of 0.5 that every decode step misses (rank 0's SLO monitor
+     decides each admission and broadcasts it). Prints one
+     ``distributed`` JSON line (each case's seconds, collective seconds,
+     bytes staged through host, launches, rank peaks) before the kernels
+     line, whose rows gain K7 and K3 at N2's router shapes, K4 at N3's
+     and N4's and K1 at N5's chunk
+  O  O1: two shape-changing instructions defined as a user defines them
+     (isa.define from the oracle, isa.bind_kernel for the template's
+     launch): pairsum (out[:, j] = x[:, 2j] + x[:, 2j+1], (rows, cols/2))
+     and to_bf16 (float32 → bfloat16, same shape), each launched once on
+     K1 at (8192, 8192) float32 with the templates' 8×1024 tile (the
+     output block 8×512 for pairsum). O2: the dry run
+     (launch.dryrun.count_cell) of phase L's cell — Mamba2-1.3B uncut,
+     train, 4 × 4096, a mesh of one — printed as its JSON report, and
+     one real step of the same cell on the card under FlopCounterMode;
+     then two plain steps timed. Prints a ``dryrun`` JSON line
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -305,7 +318,25 @@ Tolerances (fixed before any run):
     N5: every result bit for bit against its solo K1 launch, one
     k1_batch_kernel a rank, both ranks' placements equal; N6: the resume
     prints "resumed from step 4 on mesh 2x1", the served tokens equal
-    one process's; each rank's peak under N_RANK_PEAK (counted there);
+    one process's; the --slo-shed run sheds the same steps on both
+    ranks, at least one, and both return the same tokens; each rank's
+    peak under N_RANK_PEAK (counted there);
+  * O1: each instruction's K1 result bit for bit against the emulator,
+    the oracle and the one PyTorch call (x.view(r, c // 2, 2).sum(-1):
+    one IEEE add an element; x.to(torch.bfloat16): one rounding to
+    nearest even), one K1 launch each; bound 256 MiB read + 128 MiB
+    written at 3.35 TB/s = 0.1202 ms;
+  * O2: the dry run's FLOPs equal FlopCounterMode's over the real step
+    exactly (both count the same matrix products: K4's kernel on the
+    card and its oracle on meta tensors hold none); its predicted peak
+    (arguments + the walk's live storages) within O2_PEAK_RATIO = (0.8,
+    1.25) of torch.cuda.max_memory_allocated over that step — the walk
+    counts every storage's exact bytes, and the card adds the caching
+    allocator's 512-byte rounding, library workspaces and K4 in place of
+    its oracle's temporaries, each well under a GB of a ~37 GB peak,
+    while a count that missed the optimizer's moments or the saved
+    layer inputs (each ≥ 5 GB) would fall outside; its roofline lower
+    bound beside the measured step seconds, not gated;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
     (padding the one-row operand to 8 rows would pass it), for H the
@@ -316,7 +347,8 @@ Tolerances (fixed before any run):
     of a train step's two peaks counted in bytes (``train_peak_limit``:
     the forward and backward's, the optimizer update's: 50.2 GB); 3 GB
     for M; for N's parent L's (N2's one-process layer holds 33.8 GB of
-    experts, N3's reference is L's step).
+    experts, N3's reference is L's step); 3 GB for O1 (x 256 MiB and
+    four outputs of 128 MiB), L's for O2 (L's step).
 
 Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
 operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
@@ -366,7 +398,9 @@ from repro_torch.kernels.flashattn import K8  # noqa: E402
 from repro_torch.kernels.prefix_scan import K3, K4  # noqa: E402
 from repro_torch.kernels.sortnet import K5, K6  # noqa: E402
 from repro_torch.kernels.topk import K7  # noqa: E402
-from repro_torch.launch import api, serve, train  # noqa: E402
+from repro_torch.launch import api, dryrun, serve, train  # noqa: E402
+from repro_torch.launch.mesh import DryMesh  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.data import SyntheticLMData, to_device  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves  # noqa: E402
 from repro_torch.graph import partition  # noqa: E402
@@ -421,6 +455,9 @@ TRAIN_GRAD_LAYERS = 2              # phase L's gradient check (docstring)
 TRAIN_GRAD_REL = 1e-4              # each leaf, of its max |g|
 MOE_ARCH = "kimi_k2_1t"            # phase M: reduced (see the docstring)
 ROUTER_SHAPE, ROUTER_K = (4096, 384), 8     # phase M: H's prefill router
+O1_SHAPE = (8192, 8192)            # phase O1: 2²⁶ float32 elements
+O2_PEAK_RATIO = (0.8, 1.25)        # phase O2: predicted / measured peak
+N6_SLO_MS = 0.5                    # N6's --slo-shed run: every step misses
 LM_REDUCED = ["n_layers 61 → 2: two layers of bf16 weights are 67.9 GiB "
               "on one 80 GB card",
               "attn_impl chunked → kernel: the switch under which prefill "
@@ -492,7 +529,9 @@ PEAK_MEM_LIMIT = {"A": 3e9, "B": 3e9, "C": 3e9, "D": 3e9,
                      for ph, (arch, b, p, _) in SSM_SERVES.items()},
                   "L": train_peak_limit(get_config(TRAIN_ARCH), TRAIN_BATCH,
                                         TRAIN_SEQ),
-                  "M": 3e9}
+                  "M": 3e9, "O1": 3e9,
+                  "O2": train_peak_limit(get_config(TRAIN_ARCH),
+                                         TRAIN_BATCH, TRAIN_SEQ)}
 KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
     "K1": ("triton", "src/repro_torch/core/fused_kernel.py",
            "src/repro/core/program.py:914"),
@@ -552,6 +591,72 @@ def register_absmax() -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase O1's user-defined shape-changing instructions (isa.define)
+# ---------------------------------------------------------------------------
+
+def _pairsum_body(scalars, ins, carry, step):
+    x = ins[0]
+    return (x[..., 0::2] + x[..., 1::2],), carry
+
+
+_PAIRSUM_TRITON = """
+def pairsum(x0, carry, step):
+    a, b = tl.split(tl.reshape(x0, (x0.shape[0], x0.shape[1] // 2, 2)))
+    return a + b, carry
+"""
+
+
+def _to_bf16_body(scalars, ins, carry, step):
+    return (ins[0].to(torch.bfloat16),), carry
+
+
+_TO_BF16_TRITON = """
+def to_bf16(x0, carry, step):
+    return x0.to(tl.bfloat16), carry
+"""
+
+# out[:, j] = x[:, 2j] + x[:, 2j+1]: rows kept, columns halved, so the
+# 8×1024 tile writes an 8×512 block
+PAIRSUM = KernelTemplate(
+    name="pairsum", body=_pairsum_body, block_rows=8, block_cols=1024,
+    out_shapes=lambda x: [torch.empty((x.shape[0], x.shape[1] // 2),
+                                      dtype=x.dtype, device="meta")],
+    triton_body=_PAIRSUM_TRITON)
+# float32 → bfloat16 (round to nearest even): same shape, another dtype
+TO_BF16 = KernelTemplate(
+    name="to_bf16", body=_to_bf16_body, block_rows=8, block_cols=1024,
+    out_shapes=lambda x: [torch.empty(x.shape, dtype=torch.bfloat16,
+                                      device="meta")],
+    triton_body=_TO_BF16_TRITON)
+
+
+def pairsum_plain(x: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call computing ``pairsum``."""
+    return x.view(x.shape[0], x.shape[1] // 2, 2).sum(-1)
+
+
+def to_bf16_plain(x: torch.Tensor) -> torch.Tensor:
+    """The one PyTorch call computing ``to_bf16``."""
+    return x.to(torch.bfloat16)
+
+
+O1_TEMPLATES = {"pairsum": (PAIRSUM, pairsum_plain),
+                "to_bf16": (TO_BF16, to_bf16_plain)}
+
+
+def define_o1() -> None:
+    """Phase O1's two instructions as a user defines them (paper §2.2):
+    ``isa.define`` from the oracle, then ``isa.bind_kernel`` attaches the
+    template's launch (K1 at the template's declared tile)."""
+    for name, (tpl, plain) in O1_TEMPLATES.items():
+        isa.define(name, itype="I'", vector_in=1, vector_out=1,
+                   pipeline_depth=tpl.pipeline_depth(), overwrite=True,
+                   doc=f"{name}: a shape-changing stage on K1")(plain)
+        isa.bind_kernel(name, lambda x, interpret=False, tpl=tpl: tpl(
+            x, interpret=interpret))
+
+
+# ---------------------------------------------------------------------------
 # the main path, phase by phase (also driven at tiny sizes by the tests)
 # ---------------------------------------------------------------------------
 
@@ -598,6 +703,12 @@ def phase_c(xs, bs, interpret: bool):
 def phase_d(x, mode):
     """The user-defined carried instruction (register_absmax() first)."""
     return isa.call("c7_absmax_scale", x, mode=mode)
+
+
+def phase_o1(x, mode):
+    """The two shape-changing instructions (define_o1() first), one
+    launch each."""
+    return {name: isa.call(name, x, mode=mode) for name in O1_TEMPLATES}
 
 
 def sort_keys(seed: int, n: int, device) -> torch.Tensor:
@@ -3511,6 +3622,11 @@ def run_n6(dev, check, rows) -> dict:
                "--gen", "8", "--prompt-len", "32"],
               ["--arch", "mamba2-1.3b", "--reduced", "--gen", "8",
                "--prompt-len", "32"]]
+    # --sched --slo-shed on 2 ranks (2x1): a per-token target every step
+    # misses, so rank 0's monitor sheds, and every rank sheds with it
+    shed_run = ["--arch", "mamba2-1.3b", "--reduced", "--gen", "8",
+                "--prompt-len", "32", "--sched", "--slo-shed", "--slo-ms",
+                str(N6_SLO_MS)]
     alone = [_captured(serve.main, argv) for argv in serves]
     with tempfile.TemporaryDirectory(dir=build) as d:
         four = spawn_ranks("N6", 4, [
@@ -3526,7 +3642,7 @@ def run_n6(dev, check, rows) -> dict:
                        "1", "--ckpt-dir", os.path.join(d, arch),
                        "--ckpt-every", "2", *small])
             for arch in ("mamba2-1.3b", "kimi-k2-1t")] + [
-            ("serve", argv) for argv in serves])
+            ("serve", argv) for argv in serves + [shed_run]])
     texts = [r["text"] for r in four[0]["runs"]]
     for t in texts:
         check.true("N6 train.main on 4 ranks: no 2x2 mesh or no end",
@@ -3542,11 +3658,28 @@ def run_n6(dev, check, rows) -> dict:
             check.true(f"N6 serve {serves[i][1]} rank {r}: greedy tokens "
                        f"differ from one process's",
                        np.array_equal(run["tokens"], np.asarray(want)))
+    shed = [n6_shed_steps(r["runs"][2 + len(serves)]["text"]) for r in two]
+    check.true(f"N6 serve --slo-shed on 2 ranks: shed steps {shed}, want "
+               f"the same on every rank and at least one",
+               shed[0] and all(x == shed[0] for x in shed))
+    check.true("N6 serve --slo-shed on 2 ranks: tokens differ between "
+               "ranks", all(np.array_equal(r["runs"][-1]["tokens"],
+                                           two[0]["runs"][-1]["tokens"])
+                            for r in two))
     return {"train_4_ranks": texts,
             "resume_2_ranks": [r["text"] for r in two[0]["runs"][:2]],
             "serve_2_ranks": [r["text"] for r in two[0]["runs"][2:]],
+            "slo_shed_steps": shed,
             "rank_peak_bytes": _rank_peaks(check, "N6", four + two),
             "spawn_s": [four[0]["spawn_s"], two[0]["spawn_s"]]}
+
+
+def n6_shed_steps(text: str) -> list[int]:
+    """The decode steps a ``serve.main --slo-shed`` run printed as shed."""
+    import re
+    m = re.search(r"slo-shed: \d+ decode steps shed at admission: "
+                  r"\[([\d, ]*)\]", text)
+    return [] if m is None else [int(v) for v in m.group(1).split(",")]
 
 
 def run_phase_n(dev, check, rows):
@@ -3568,6 +3701,93 @@ def run_phase_n(dev, check, rows):
         print(f"phase {name}: {out[name]['case_s']:.1f} s", file=sys.stderr,
               flush=True)
     print(json.dumps({"distributed": out}, default=str), flush=True)
+
+
+def run_phase_o1(dev, check, rows):
+    """The two shape-changing instructions, defined with isa.define and
+    given their kernels with isa.bind_kernel, launched once each on K1
+    at O1_SHAPE: bit for bit against the emulator, the oracle and the one
+    PyTorch call, one K1 launch each, timed beside their byte bound."""
+    define_o1()
+    (x,) = make_inputs(SEED + 13, [O1_SHAPE], dev)
+    n = x.numel()
+    for name, (_, plain_call) in O1_TEMPLATES.items():
+        K1.launches = 0
+        got = isa.call(name, x, mode="kernel")
+        launches = K1.launches
+        check.true(f"O1 {name}: {launches} K1 launches, want 1",
+                   launches == 1)
+        interp = isa.call(name, x, mode="interpret")
+        ref = isa.call(name, x, mode="ref")
+        library = plain_call(x)
+        check.shaped(f"O1 {name}", got, library.shape)
+        for what, want in (("the emulator", interp), ("ref", ref),
+                           ("the PyTorch call", library)):
+            check.true(f"O1 {name}: kernel vs {what} not bit for bit",
+                       same_bits(got, want))
+        rows.append(entry(
+            f"O1 {name}", launches, max_abs(got.float(), interp.float()),
+            time_ms(lambda: isa.call(name, x, mode="kernel")),
+            time_ms(lambda: isa.call(name, x, mode="interpret"), reps=5),
+            n * x.element_size() + got.numel() * got.element_size(),
+            n // 2 if name == "pairsum" else 0,
+            time_ms(lambda: plain_call(x)),
+            out_shape=list(got.shape), out_dtype=str(got.dtype)))
+        del got, interp, ref, library
+
+
+def run_phase_o2(dev, check, rows):
+    """The dry run of phase L's cell (Mamba2-1.3B uncut, train, 4 × 4096,
+    a mesh of one) against one real step of it on the card: FLOPs equal
+    (FlopCounterMode over both), the predicted peak within O2_PEAK_RATIO
+    of torch.cuda.max_memory_allocated, and the roofline lower bound
+    beside the measured step seconds (not gated)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = get_config(TRAIN_ARCH)
+    shape = ShapeConfig("train_L", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    rep = dryrun.count_cell(cfg, shape, DryMesh((1, 1), ("data", "model")),
+                            arch=TRAIN_ARCH)
+    dry_s = time.perf_counter() - t0
+    print(rep.to_json(), flush=True)
+    state = api.init_train_state(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 30), dev)
+    batch = to_device(SyntheticLMData(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                                      SEED).host_batch(0), dev)
+    step_fn = api.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with FlopCounterMode(display=False) as fc:
+        out = step_fn(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    flops = float(fc.get_total_flops())
+    del out
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        out = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        del out
+    predicted = rep.memory["peak_gib"] * 2**30
+    ratio = predicted / peak
+    check.true(f"O2: dry-run FLOPs {rep.flops_per_chip} != the card's "
+               f"{flops}", rep.flops_per_chip == flops)
+    check.true(f"O2: predicted peak {predicted:.0f} B / measured {peak} B "
+               f"= {ratio:.4f} outside {O2_PEAK_RATIO}",
+               O2_PEAK_RATIO[0] <= ratio <= O2_PEAK_RATIO[1])
+    print(json.dumps({"dryrun": {
+        "phase": "O2", "card": CARD, "model": TRAIN_ARCH,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dry_walk_s": dry_s,
+        "flops_dry": rep.flops_per_chip, "flops_card": flops,
+        "hbm_bytes_dry": rep.hbm_bytes_per_chip,
+        "predicted_peak_bytes": predicted, "measured_peak_bytes": peak,
+        "peak_ratio": ratio, "peak_ratio_limit": O2_PEAK_RATIO,
+        "lower_bound_s": rep.terms["step_time_lower_bound_s"],
+        "dominant": rep.terms["dominant"], "step_wall_s": walls}}),
+        flush=True)
+    del state, batch
 
 
 def main() -> int:
@@ -3598,7 +3818,8 @@ def main() -> int:
                         ("G", run_phase_g), ("H", run_phase_h),
                         ("I", run_phase_i), ("J", run_phase_j),
                         ("K", run_phase_k), ("L", run_phase_l),
-                        ("M", run_phase_m), ("N", run_phase_n)):
+                        ("M", run_phase_m), ("N", run_phase_n),
+                        ("O1", run_phase_o1), ("O2", run_phase_o2)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

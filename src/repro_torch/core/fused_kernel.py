@@ -26,6 +26,12 @@ everything else off HBM:
   ``pid`` reads row ``pid // items_div`` (``items_div`` the row blocks
   per item);
 * offsets are int64, since an operand can pass 2³¹ elements;
+* a solo shape-changing stage (``Stage.out_shapes``) keeps the rows and
+  scales the columns of each output: output ``j`` is stored at its own
+  column block ``BO{j} = BC · out_cols_j / cols`` (a power of two, as
+  ``tl.arange`` needs; :func:`out_block_widths` raises otherwise) at the
+  same (row block, column step), in its own dtype, with its own row
+  length ``n_steps · BO{j}``;
 * a coalesced batch (``k1_batch_kernel``) reads and writes every item
   where it lies: program ``pid`` runs row block ``pid % blocks_per_item``
   of item ``pid // blocks_per_item``, whose address is item 0's typed
@@ -97,22 +103,35 @@ def _split(stages: Sequence[Stage], n_ext: Sequence[int]):
 # the plain PyTorch version (``interpret`` mode)
 # ---------------------------------------------------------------------------
 
+def _out_tensors(out_specs, device) -> list[torch.Tensor]:
+    """New tensors for ``((shape, dtype name), ...)`` on ``device``."""
+    return [torch.empty(shape, dtype=getattr(torch, dt), device=device)
+            for shape, dt in out_specs]
+
+
 def emulate(stages: Sequence[Stage], n_ext: Sequence[int],
             table: torch.Tensor, vectors: Sequence[torch.Tensor],
             block_rows: int, block_cols: int,
-            items_div: int) -> list[torch.Tensor]:
+            items_div: int, out_specs=None) -> list[torch.Tensor]:
     """K1's grid walk in torch eager, on the vectors' device.
 
     ``table`` is the ``(k_items, m)`` float32 scalar table; row block
     ``r`` reads row ``r // items_div``. Each column step runs every
-    stage body once on all row blocks together."""
+    stage body once on all row blocks together. ``out_specs`` (``((shape,
+    dtype name), ...)``, default the input's) sizes the outputs of a
+    shape-changing stage: output ``j`` of ``out_cols`` columns takes a
+    ``out_cols / n_steps``-wide block each step, stored in its dtype."""
     rows, cols = vectors[0].shape
     nrb, ncs = rows // block_rows, cols // block_cols
     dev, dtype = vectors[0].device, vectors[0].dtype
     views = [v.view(nrb, block_rows, ncs, block_cols) for v in vectors]
-    outs = [torch.empty((rows, cols), dtype=dtype, device=dev)
-            for _ in range(stages[-1].n_vec_out)]
-    out_views = [o.view(nrb, block_rows, ncs, block_cols) for o in outs]
+    if out_specs is None:
+        outs = [torch.empty((rows, cols), dtype=dtype, device=dev)
+                for _ in range(stages[-1].n_vec_out)]
+    else:
+        outs = _out_tensors(out_specs, dev)
+    out_views = [o.view(nrb, block_rows, ncs, o.shape[1] // ncs)
+                 for o in outs]
     scal: list = []
     if table.shape[1]:
         item = torch.arange(nrb, device=dev) // items_div
@@ -278,8 +297,18 @@ def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int],
         ]
         pre = []
         load = lambda i: f"tl.load(X{i} + offs)"                # noqa: E731
-        store = (lambda j, o: f"tl.store(O{j} + offs, "
-                              f"{o}.to(O{j}.dtype.element_ty))")
+        if stages[-1].shape_preserving:
+            store = (lambda j, o: f"tl.store(O{j} + offs, "
+                                  f"{o}.to(O{j}.dtype.element_ty))")
+        else:
+            # output j of a shape-changing stage: BO{j} columns a step,
+            # rows of n_steps · BO{j} elements (int64 offsets: rows is)
+            params += [f"BO{j}: tl.constexpr" for j in range(no)]
+            body += [f"obase{j} = rows[:, None] * (n_steps * BO{j}) "
+                     f"+ tl.arange(0, BO{j})[None, :]" for j in range(no)]
+            pre = [f"oofs{j} = obase{j} + step * BO{j}" for j in range(no)]
+            store = (lambda j, o: f"tl.store(O{j} + oofs{j}, "
+                                  f"{o}.to(O{j}.dtype.element_ty))")
         name = "k1_kernel"
     if ns:
         body.append(f"srow = S + (pid // items_div).to(tl.int64) * {ns}"
@@ -363,6 +392,22 @@ def item_offsets(rows: Sequence[Sequence[torch.Tensor]]) -> list[list[int]]:
              for t, t0 in zip(row, rows[0])] for row in rows]
 
 
+def out_block_widths(out_specs, block_cols: int, cols: int) -> dict:
+    """The ``BO{j}`` column blocks of a shape-changing stage's outputs,
+    ``block_cols · out_cols_j / cols`` each; ``tl.arange`` needs each to
+    be a power of two, and anything else raises."""
+    widths = {}
+    for j, (shape, _) in enumerate(out_specs):
+        bo, rem = divmod(block_cols * shape[1], cols)
+        if rem or bo < 1 or bo & (bo - 1):
+            raise ValueError(
+                f"K1: output {j}'s column block is {block_cols} · "
+                f"{shape[1]} / {cols} = {block_cols * shape[1] / cols}; "
+                f"K1 needs a power of two (tl.arange)")
+        widths[f"BO{j}"] = bo
+    return widths
+
+
 class K1Kernel:
     """The K1 wrapper: generates, loads and launches the Triton kernel.
     ``launches`` counts kernel launches, and only those; ``item_copies``
@@ -385,7 +430,12 @@ class K1Kernel:
 
     def __call__(self, kernel, table: torch.Tensor,
                  vectors: Sequence[torch.Tensor], n_out: int,
-                 block_rows: int, block_cols: int) -> list[torch.Tensor]:
+                 block_rows: int, block_cols: int,
+                 out_specs=None) -> list[torch.Tensor]:
+        """One ``k1_kernel`` launch. ``out_specs`` (``((shape, dtype
+        name), ...)``) sizes the outputs of a shape-changing stage, each
+        stored ``block_cols · out_cols / cols`` columns a step; without
+        it every output is shaped like the inputs."""
         v0 = vectors[0]
         check_cuda(list(vectors) + [table])
         for v in vectors:
@@ -393,14 +443,19 @@ class K1Kernel:
                 raise ValueError("K1 needs contiguous vector operands of "
                                  "one dtype")
         rows, cols = v0.shape
-        outs = [torch.empty_like(v0) for _ in range(n_out)]
+        widths = {}
+        if out_specs is None:
+            outs = [torch.empty_like(v0) for _ in range(n_out)]
+        else:
+            outs = _out_tensors(out_specs, v0.device)
+            widths = out_block_widths(out_specs, block_cols, cols)
         args = ([table] if table.shape[1] else []) + list(vectors) + outs
         # 8 warps for an 8×1024 tile (32 elements per thread per operand)
         warps = 8 if block_rows * block_cols >= 8192 else 4
         with torch.cuda.device(v0.device):
             kernel[(rows // block_rows,)](
                 *args, cols // block_cols, cols,
-                BR=block_rows, BC=block_cols, num_warps=warps)
+                BR=block_rows, BC=block_cols, num_warps=warps, **widths)
         self.launches += 1
         return outs
 

@@ -282,6 +282,35 @@ class Registry:
         self._fuse_cache.clear()
         return instr
 
+    def define(self, name: str, *, itype: str = "I'", scalar_in: int = 0,
+               scalar_out: int = 0, vector_in: int = 1, vector_out: int = 1,
+               pipeline_depth: int = 1, stream: Optional[StreamConfig] = None,
+               doc: str = "", kernel: Optional[Callable] = None,
+               differentiable: bool = False, overwrite: bool = False):
+        """Decorator form: ``@isa.define("c2_sort", vector_in=1, ...)``.
+
+        The decorated function becomes the instruction's oracle (``ref``);
+        ``kernel`` (or a later :meth:`bind_kernel`) is its GPU path, called
+        with ``interpret=``. The operand counts are checked against the
+        I'/S' budgets here, before anything is registered."""
+        spec = OperandSpec(itype=itype, scalar_in=scalar_in,
+                           scalar_out=scalar_out, vector_in=vector_in,
+                           vector_out=vector_out)
+
+        def deco(ref_fn: Callable) -> Instruction:
+            instr = Instruction(
+                name=name, spec=spec, ref=ref_fn, kernel=kernel,
+                pipeline_depth=pipeline_depth,
+                stream=stream or StreamConfig(), doc=doc or ref_fn.__doc__ or "",
+                differentiable=differentiable)
+            return self.register(instr, overwrite=overwrite)
+
+        return deco
+
+    def bind_kernel(self, name: str, kernel: Callable) -> None:
+        """Attach/replace the GPU implementation of an instruction."""
+        self.get(name).kernel = kernel
+
     # -- fusion ---------------------------------------------------------------
     def fuse(self, *names: str, name: Optional[str] = None) -> FusedProgram:
         """Fuse registered instructions into one reconfigurable region.
@@ -381,6 +410,8 @@ class Registry:
 _REGISTRY = Registry()
 
 register = _REGISTRY.register
+define = _REGISTRY.define
+bind_kernel = _REGISTRY.bind_kernel
 fuse = _REGISTRY.fuse
 get = _REGISTRY.get
 names = _REGISTRY.names
@@ -388,3 +419,6 @@ use = _REGISTRY.use
 call = _REGISTRY.dispatch
 registry = _REGISTRY
 
+
+def current_mode() -> str:
+    return _REGISTRY.mode

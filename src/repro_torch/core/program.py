@@ -507,6 +507,10 @@ class Program:
         return out
 
     # -- cost model (roofline inputs) ---------------------------------------
+    def flops(self, n_elems: int) -> float:
+        return float(n_elems) * sum(st.cost_flops_per_elem
+                                    for st in self.stages)
+
     def hbm_bytes_fused(self, n_elems: int, dtype) -> int:
         """HBM traffic of THIS program: externals + final outputs only."""
         return (self.n_ext_vec_in + self.n_vec_out) * n_elems * _bits(dtype) // 8
@@ -669,15 +673,14 @@ class Program:
             raise ValueError(
                 f"{self.name}: operand shape {(rows, cols)} not divisible by "
                 f"block ({block_rows}, {block_cols}); pad upstream")
-        if last.out_shapes is not None:
-            raise NotImplementedError(
-                f"{self.name}: shape-changing stages are not ported yet")
+        out_specs = self._out_specs(vectors, block_cols)
 
         table = _scalar_table([scalars], vectors[0].device)
         items_div = max(1, rows // block_rows)      # one scalar row: all
         sig = (block_rows, block_cols, bool(interpret),
                tuple(table.shape), vectors[0].device.type,
-               tuple((tuple(v.shape), dtype_name(v.dtype)) for v in vectors))
+               tuple((tuple(v.shape), dtype_name(v.dtype)) for v in vectors),
+               out_specs)
         launch = self._exe_cache.get(sig)
         if launch is None:
             DISPATCH_STATS.call_builds += 1
@@ -685,7 +688,7 @@ class Program:
                              block=[block_rows, block_cols],
                              interpret=bool(interpret)):
                 launch = self._build_call(vectors, block_rows, block_cols,
-                                          interpret)
+                                          interpret, out_specs=out_specs)
             if len(self._exe_cache) >= _EXE_CACHE_MAX:
                 self._exe_cache.pop(next(iter(self._exe_cache)))
             self._exe_cache[sig] = launch
@@ -708,9 +711,10 @@ class Program:
         flat tensors of ``n`` elements. ``interpret`` runs the plain
         PyTorch version (:func:`~repro_torch.core.fused_kernel.
         emulate_items`)."""
-        if self.stages[-1].out_shapes is not None:
-            raise NotImplementedError(
-                f"{self.name}: shape-changing stages are not ported yet")
+        if not all(st.shape_preserving for st in self.stages):
+            raise ValueError(
+                f"{self.name}: shape-changing programs cannot be "
+                f"batch-coalesced (per-item output shapes differ)")
         v0 = items[0][0]
         device = v0.device
         table = _scalar_table(list(scalar_rows), device)
@@ -735,20 +739,62 @@ class Program:
             self._exe_cache[sig] = launch
         return launch(table, items, items_div)
 
+    def _out_specs(self, vectors, block_cols: int):
+        """The outputs of a :meth:`call_blocks` launch as ``((shape,
+        dtype name), ...)``: the input's for a shape-preserving program,
+        else the last stage's ``out_shapes(*vectors)`` (objects with
+        ``.shape`` and ``.dtype``, a ``device="meta"`` tensor serves).
+        Output ``j`` keeps the rows and scales the columns: its block is
+        ``(block_rows, block_cols · out_cols_j / cols)`` at the same grid
+        index, which must be a whole number of columns."""
+        last = self.stages[-1]
+        rows, cols = vectors[0].shape
+        if last.out_shapes is None:
+            spec = (tuple(vectors[0].shape), dtype_name(vectors[0].dtype))
+            return (spec,) * last.n_vec_out
+        outs = tuple(last.out_shapes(*vectors))
+        if len(outs) != last.n_vec_out:
+            raise ValueError(f"{self.name}: out_shapes gave {len(outs)} "
+                             f"outputs, declared {last.n_vec_out}")
+        specs = []
+        for o in outs:
+            shape = tuple(int(d) for d in o.shape)
+            if len(shape) != 2 or shape[0] != rows:
+                raise ValueError(
+                    f"{self.name}: a shape-changing output keeps the "
+                    f"input's {rows} rows; got shape {shape}")
+            if (block_cols * shape[1]) % cols:
+                raise ValueError(
+                    f"{self.name}: output width {shape[1]} gives a column "
+                    f"block of {block_cols * shape[1] / cols} for input "
+                    f"width {cols} at block {block_cols}; it must be whole")
+            specs.append((shape, dtype_name(o.dtype)))
+        return tuple(specs)
+
     def _build_call(self, vectors, block_rows, block_cols, interpret,
-                    batch: bool = False):
+                    batch: bool = False, out_specs=None):
         """The launch closure for one operand signature (the cold half of
         :meth:`call_blocks` and :meth:`call_items`): K1, or its plain
-        PyTorch emulator; with ``batch`` the per-item versions."""
+        PyTorch emulator; with ``batch`` the per-item versions.
+        ``out_specs`` (solo launches) sizes the outputs."""
         stages, n_ext = self.stages, tuple(self._n_ext)
         if interpret:
             DISPATCH_STATS.kernel_traces += 1
-            walk = _fk.emulate_items if batch else _fk.emulate
-
-            def launch(table, vecs, items_div):
-                return walk(stages, n_ext, table, vecs, block_rows,
-                            block_cols, items_div)
+            if batch:
+                def launch(table, vecs, items_div):
+                    return _fk.emulate_items(stages, n_ext, table, vecs,
+                                             block_rows, block_cols,
+                                             items_div)
+            else:
+                def launch(table, vecs, items_div):
+                    return _fk.emulate(stages, n_ext, table, vecs,
+                                       block_rows, block_cols, items_div,
+                                       out_specs)
             return launch
+        if self.stages[-1].shape_preserving:
+            out_specs = None                # every output shaped as the inputs
+        elif not batch:
+            _fk.out_block_widths(out_specs, block_cols, vectors[0].shape[1])
         _fk.check_cuda(vectors)
         kernel, fresh = _fk.K1.compile(stages, n_ext, batch)
         DISPATCH_STATS.kernel_traces += fresh
@@ -760,7 +806,7 @@ class Program:
         else:
             def launch(table, vecs, items_div):   # one scalar row: unused
                 return _fk.K1(kernel, table, vecs, n_out, block_rows,
-                              block_cols)
+                              block_cols, out_specs)
         return launch
 
     def _check_vectors(self, per_stage):

@@ -69,7 +69,9 @@ class Stage:
     carry_init: float = 0.0
     cost_flops_per_elem: float = 1.0
     # Non-None only on single-stage programs (shape-changing outputs can't
-    # feed a chained stage's input block).
+    # feed a chained stage's input block): fn(*vectors) -> one object with
+    # ``.shape`` and ``.dtype`` per output (a ``device="meta"`` tensor
+    # serves); each keeps the input's rows and scales its columns.
     out_shapes: Optional[Callable[..., Sequence[Any]]] = None
     # Source text of the stage's Triton device function (None: the stage
     # runs only in ``interpret`` mode).

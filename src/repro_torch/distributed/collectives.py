@@ -10,6 +10,15 @@ host for gloo. A group of None is one rank: every collective is then
 the identity. Nothing falls back to a local result when a collective
 fails: its error is raised.
 
+**Recording and dry groups.** Inside :func:`recording` every
+collective that :func:`_run` issues is logged as (kind, result bytes,
+group size), the kinds named as XLA names them (``all-reduce``,
+``all-gather``, ``all-to-all``, ``collective-permute``, and
+``broadcast``). A :class:`DryGroup` is a group that moves nothing: a
+collective on it is logged and returns its outputs unfilled, so one
+process can walk one rank's step of a mesh of any size on meta tensors
+(``launch/dryrun.py``).
+
 **Autograd.** :func:`all_reduce`, :func:`all_gather` and
 :func:`all_to_all` are ``torch.autograd.Function``s whose backward is
 the adjoint of their forward under the SPMD objective Σ_ranks loss_r:
@@ -29,6 +38,7 @@ step is one IEEE operation: abs, max, divide, round, multiply, add).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -39,6 +49,35 @@ STAGED_BYTES = 0
 #: host seconds spent in collectives staged through host (CUDA work
 #: queued before one is waited for first, outside this count)
 SECONDS = 0.0
+#: the open :func:`recording` logs
+_LOGS: list[list] = []
+
+
+class DryGroup:
+    """A group of ``size`` ranks in which this process is rank ``rank``
+    and nothing moves: collectives on it are logged and leave their
+    outputs as allocated (a dry run's meta tensors keep their shapes)."""
+
+    def __init__(self, size: int, rank: int = 0):
+        self.size, self.rank = int(size), int(rank)
+
+    def __repr__(self):
+        return f"DryGroup(size={self.size}, rank={self.rank})"
+
+
+@contextlib.contextmanager
+def recording():
+    """Log every collective issued inside, on any group: yields a list
+    that gains one ``(kind, result bytes, group size)`` per collective
+    (a hop's bytes are those it sends, or receives when it only
+    receives). ``roofline.analysis.collective_bytes_of`` turns it into
+    the reference's per-kind traffic."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
 
 
 def _dist():
@@ -50,6 +89,10 @@ def _staged(group) -> bool:
     return _dist().get_backend(group) == "gloo"
 
 
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     global STAGED_BYTES
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -58,11 +101,19 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _run(group, op: Callable, outs: list, ins: list) -> None:
+def _run(group, op: Callable, outs: list, ins: list, kind: str) -> None:
     """``op(outs, ins)`` on ``group``: CUDA tensors through host buffers
     on gloo (the results copied back into ``outs``), as they are on
-    NCCL."""
+    NCCL; logged as ``kind`` in every open :func:`recording`; on a
+    :class:`DryGroup`, only logged."""
     global SECONDS
+    if _LOGS:
+        moved = ((_nbytes(ins) or _nbytes(outs))
+                 if kind == "collective-permute" else _nbytes(outs))
+        for log in _LOGS:
+            log.append((kind, moved, size(group)))
+    if isinstance(group, DryGroup):
+        return
     if not any(t.is_cuda for t in outs + ins) or not _staged(group):
         op(outs, ins)
         return
@@ -79,11 +130,19 @@ def _run(group, op: Callable, outs: list, ins: list) -> None:
 
 
 def size(group) -> int:
-    return 1 if group is None else _dist().get_world_size(group)
+    if group is None:
+        return 1
+    if isinstance(group, DryGroup):
+        return group.size
+    return _dist().get_world_size(group)
 
 
 def rank(group) -> int:
-    return 0 if group is None else _dist().get_rank(group)
+    if group is None:
+        return 0
+    if isinstance(group, DryGroup):
+        return group.rank
+    return _dist().get_rank(group)
 
 
 def _global(group, r: int) -> int:
@@ -105,7 +164,7 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
         if outs[0].data_ptr() != ins[0].data_ptr():
             outs[0].copy_(ins[0])
         dist.all_reduce(outs[0], group=group)
-    _run(group, op, [buf], [buf])
+    _run(group, op, [buf], [buf], "all-reduce")
     if buf is not x:
         x.copy_(buf)
     return x
@@ -120,7 +179,19 @@ def all_reduce_max_(x: torch.Tensor, group) -> torch.Tensor:
         if outs[0].data_ptr() != ins[0].data_ptr():
             outs[0].copy_(ins[0])
         dist.all_reduce(outs[0], op=dist.ReduceOp.MAX, group=group)
-    _run(group, op, [x], [x])
+    _run(group, op, [x], [x], "all-reduce")
+    return x
+
+
+def broadcast_(x: torch.Tensor, group, src: int = 0) -> torch.Tensor:
+    """Group rank ``src``'s ``x`` into every rank's ``x``, in place."""
+    if group is None:
+        return x
+    dist = _dist()
+
+    def op(outs, ins):
+        dist.broadcast(outs[0], src=_global(group, src), group=group)
+    _run(group, op, [x], [x], "broadcast")
     return x
 
 
@@ -134,7 +205,7 @@ def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     out = src.new_empty((n * src.shape[0],) + src.shape[1:])
     _run(group, lambda o, i: dist.all_gather_into_tensor(o[0], i[0],
                                                          group=group),
-         [out], [src])
+         [out], [src], "all-gather")
     return out.movedim(0, dim)
 
 
@@ -147,7 +218,7 @@ def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
     src = x.contiguous()
     out = torch.empty_like(src)
     _run(group, lambda o, i: dist.all_to_all_single(o[0], i[0], group=group),
-         [out], [src])
+         [out], [src], "all-to-all")
     return out
 
 
@@ -175,7 +246,7 @@ def shift(tensors: list[torch.Tensor], group, send_to: int | None,
         for w in dist.batch_isend_irecv(ops):
             w.wait()
     ins = [t.contiguous() for t in tensors] if send_to is not None else []
-    _run(group, op, recv or [], ins)
+    _run(group, op, recv or [], ins, "collective-permute")
     return recv
 
 

@@ -4,8 +4,9 @@
 For each (arch × shape): the function an entry point runs (the train step,
 prefill, the serve step), the shapes and dtypes of its inputs, their
 logical axes and, on a mesh, their specs (:func:`build_cell`).
-``lower_cell`` lowers through XLA in the reference and waits for the dry
-run (ROADMAP Queue 1 step 7).
+:func:`lower_cell` is what the dry run counts: one rank's step with meta
+tensors of that rank's shards for its arguments (the reference lowers
+the cell through XLA instead).
 
 The train step is functional, as the reference's: ``step(state, batch)
 → (new state, metrics)`` over ``{"params", "opt", "step"}`` (nested
@@ -335,3 +336,47 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     return (make_serve_step(cfg),
             (_meta(params_abs), _meta(cache_abs), _meta(batch_abs)),
             (params_sp, cache_sp, batch_sp), (None, cache_sp), (1,))
+
+
+def _port_cache_spec(spec) -> tuple:
+    """The decode cache as the port holds it at rest: a rank's rows
+    (the batch dim's axes), whole along every other dim, since dense
+    compute is not split over ``model`` here."""
+    return tuple(e if d == 1 else None for d, e in enumerate(spec))
+
+
+def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
+               grad_accum: int = 0):
+    """One rank's cell, ready to walk: ``(step, args, in specs, out
+    specs, donate_argnums)``, where ``args`` are meta tensors of the
+    rank's shards of :func:`build_cell`'s arguments and ``step(*args)``
+    runs the cell as that rank (prefill and decode inside
+    :func:`sharding.use`, as the server runs them; the train step enters
+    it itself). The train state's ``step`` is a CPU tensor holding 0 and
+    the decode batch's ``pos`` one holding ``seq_len − 1``: the walk
+    reads both as numbers. The cache (decode's argument, the output of
+    prefill and decode) is the rank's rows, whole over ``model``
+    (:func:`_port_cache_spec`). On a ``DryMesh`` the
+    step's collectives move nothing."""
+    fn, args, in_sp, out_sp, donate = build_cell(cfg, shape, mesh,
+                                                 grad_accum=grad_accum)
+    if shape.kind == "decode":
+        in_sp = (in_sp[0], tree_map(_port_cache_spec, in_sp[1]), in_sp[2])
+    if shape.kind != "train":
+        out_sp = (None, tree_map(_port_cache_spec, out_sp[1]))
+
+    def local(x, spec):
+        return torch.empty(sharding.local_shape(x.shape, spec, mesh),
+                           dtype=x.dtype, device="meta")
+    args = tuple(tree_map(local, a, sp) for a, sp in zip(args, in_sp))
+    if shape.kind == "train":
+        args[0]["step"] = torch.zeros((), dtype=torch.int32)
+        return fn, args, in_sp, out_sp, donate
+    if shape.kind == "decode":
+        args[2]["pos"] = torch.tensor(shape.seq_len - 1, dtype=torch.int32)
+    params_sp = in_sp[0]
+
+    def step(*a):
+        with sharding.use(mesh, params_sp):
+            return fn(*a)
+    return step, args, in_sp, out_sp, donate

@@ -17,7 +17,9 @@ size is not the world's raises: nothing runs silently on fewer ranks.
 
 :class:`AbstractMesh` is a mesh's shape and names alone, for sharding
 specs of meshes larger than the world (the production (16, 16) and
-(2, 16, 16)).
+(2, 16, 16)). :class:`DryMesh` is a mesh of any shape in one process, as
+one of its ranks sees it, whose groups move nothing (``DryGroup``): the
+dry run (``launch/dryrun.py``) walks one rank's step on it.
 """
 from __future__ import annotations
 
@@ -70,9 +72,7 @@ class Mesh(AbstractMesh):
         if self.size != n:
             raise ValueError(f"mesh {mesh_name(self)} {self.axis_names} has "
                              f"{self.size} ranks, the world {n}")
-        self.rank = rank
-        self.coords = dict(zip(self.axis_names, (int(c) for c in
-                               np.unravel_index(rank, self.devices_shape))))
+        self._place(rank)
         self._groups: dict[tuple, object] = {}
         if self.size > 1:
             import torch.distributed as dist
@@ -90,6 +90,11 @@ class Mesh(AbstractMesh):
                         g = dist.new_group([int(r) for r in members])
                         if rank in members:
                             self._groups[names] = g
+
+    def _place(self, rank: int) -> None:
+        self.rank = rank
+        self.coords = dict(zip(self.axis_names, (int(c) for c in
+                               np.unravel_index(rank, self.devices_shape))))
 
     def _key(self, axes) -> tuple[str, ...]:
         axes = _axes(axes)
@@ -111,13 +116,36 @@ class Mesh(AbstractMesh):
         return idx
 
 
+class DryMesh(Mesh):
+    """A mesh of ``shape`` as its rank ``rank`` sees it, in one process
+    and with no world: each group is a ``DryGroup`` of the ranks along
+    its axes, on which collectives are logged and move nothing."""
+
+    def __init__(self, shape, axis_names, rank: int = 0):
+        AbstractMesh.__init__(self, shape, axis_names)
+        self._place(rank)
+
+    def group(self, axes):
+        from repro_torch.distributed.collectives import DryGroup
+        key = self._key(axes)
+        if not key or self.axis_size(key) == 1:
+            return None
+        return DryGroup(self.axis_size(key), self.axis_index(key))
+
+
+def production_shape(multi_pod: bool = False):
+    """(shape, axis names) of the production mesh: (16, 16) ``("data",
+    "model")`` for one 256-device pod, (2, 16, 16) ``("pod", "data",
+    "model")`` for two."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The (16, 16) ``("data", "model")`` mesh of one 256-device pod, or
-    the (2, 16, 16) ``("pod", "data", "model")`` of two; raises unless
-    the world is 256 or 512 ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes)
+    """The production mesh (:func:`production_shape`); raises unless the
+    world is 256 or 512 ranks."""
+    return Mesh(*production_shape(multi_pod))
 
 
 def make_elastic_mesh(n_devices: int | None = None,

@@ -43,10 +43,12 @@ as the train driver does; a world of one is the trivial mesh) and prints
 ``mesh <shape>`` as the reference does. Each rank draws only its shards
 of the params (``init_params(mesh=)``), which every layer gathers as the
 walk reaches it, serves its (pod, data) rows of the prompts, and the
-tokens are gathered on every rank (rank 0 prints them). ``--sched`` is
-kept; ``--slo-shed`` on more than one rank raises, since each rank's
-wall clock would shed other steps and the ranks' collectives would no
-longer meet.
+tokens are gathered on every rank (rank 0 prints them). ``--sched`` and
+``--slo-shed`` are kept: each rank's wall clock would shed other steps
+and the ranks' collectives would no longer meet, so with more than one
+rank the admission is rank 0's (:class:`RankZeroAdmission`): its SLO
+monitor decides each step and the verdict is broadcast over the world
+before the step runs.
 """
 from __future__ import annotations
 
@@ -226,10 +228,6 @@ def _serve(args, tracer, sampler, httpd):
         device = torch.device("cuda", torch.cuda.current_device())
     mesh = make_elastic_mesh(model_parallel=args.model_parallel)
     print(f"mesh {mesh_name(mesh)}")
-    if args.slo_shed and mesh.size > 1:
-        raise ValueError("--slo-shed sheds by each rank's wall clock; on "
-                         f"{mesh.size} ranks their collectives would not "
-                         "meet")
     specs = sharding.tree_specs(logical_axes(cfg), abstract_params(cfg),
                                  mesh)
     g = torch.Generator(device=device).manual_seed(args.seed)
@@ -251,7 +249,8 @@ def _serve(args, tracer, sampler, httpd):
               f"{t_prefill*1e3:.1f} ms "
               f"({args.batch*args.prompt_len/t_prefill:.0f} tok/s)")
         if args.sched:
-            gen, dt = _decode_scheduled(args, cfg, params, cache, tok, g)
+            gen, dt = _decode_scheduled(args, cfg, params, cache, tok, g,
+                                        mesh)
     print(f"decoded {args.gen} tokens × batch {args.batch} in "
           f"{dt*1e3:.1f} ms ({args.batch*(args.gen-1)/max(dt,1e-9):.0f} tok/s)")
     if mesh.size > 1:
@@ -280,7 +279,30 @@ def _serve(args, tracer, sampler, httpd):
     return gen
 
 
-def _decode_scheduled(args, cfg, params, cache, tok, generator):
+class RankZeroAdmission:
+    """The admission hook of every rank of a mesh: rank 0's ``inner``
+    hook decides (its wall clock, its SLO monitor) and its verdict is
+    broadcast over the world, so every rank admits and sheds the same
+    steps and their collectives keep meeting. The other ranks' ``inner``
+    hooks are not consulted."""
+
+    VERDICTS = ("accept", "shed", "deprioritise")
+
+    def __init__(self, inner, mesh):
+        self.inner = inner
+        self.mesh = mesh
+        self.weight_factor = getattr(inner, "weight_factor", 0.25)
+
+    def admit(self, tenant: str, now: float) -> str:
+        code = torch.zeros(1, dtype=torch.int32)
+        if self.mesh.rank == 0:
+            code[0] = self.VERDICTS.index(self.inner.admit(tenant=tenant,
+                                                           now=now))
+        C.broadcast_(code, self.mesh.group(self.mesh.axis_names))
+        return self.VERDICTS[int(code[0])]
+
+
+def _decode_scheduled(args, cfg, params, cache, tok, generator, mesh):
     """The decode loop as scheduling-runtime clients.
 
     Decode steps are sequentially dependent (the cache, the sampled
@@ -288,7 +310,9 @@ def _decode_scheduled(args, cfg, params, cache, tok, generator):
     — what the runtime adds is admission, deadline accounting against
     the ``--slo-ms`` per-token budget, EWMA-corrected per-step
     predictions and the replayable trace. Returns (tokens (B, n) int32,
-    decode seconds); a step shed at admission adds no token.
+    decode seconds); a step shed at admission adds no token. On a mesh
+    of more than one rank, admission is rank 0's
+    (:class:`RankZeroAdmission`).
     """
     from repro_torch.sched import (CostModel, RequestQueue, Scheduler,
                                    TraceRecorder)
@@ -304,7 +328,10 @@ def _decode_scheduled(args, cfg, params, cache, tok, generator):
         monitor = SloMonitor(threshold=2.0)
         monitor.add("decode", target_s=slo, objective=0.9,
                     fast_s=20 * slo, slow_s=200 * slo)
-        queue = RequestQueue(admission=SloShedder(monitor))
+        admission = SloShedder(monitor)
+        if mesh.size > 1:
+            admission = RankZeroAdmission(admission, mesh)
+        queue = RequestQueue(admission=admission)
     else:
         queue = RequestQueue()
     cost = CostModel()
@@ -330,7 +357,7 @@ def _decode_scheduled(args, cfg, params, cache, tok, generator):
 
     out_tokens = [tok]
     t0 = time.perf_counter()
-    shed_steps = 0
+    shed_steps = []
     for i in range(args.gen - 1):
         now = sched.now()
         it = queue.submit(step, (i,), deadline=now + slo, tenant="decode",
@@ -338,7 +365,7 @@ def _decode_scheduled(args, cfg, params, cache, tok, generator):
         if it.shed:
             # admission dropped the step: no token this position — the
             # decode chain resumes at the next admitted step
-            shed_steps += 1
+            shed_steps.append(i)
             continue
         sched.drain()
         out_tokens.append(state["tok"])
@@ -366,8 +393,8 @@ def _decode_scheduled(args, cfg, params, cache, tok, generator):
     if monitor is not None:
         print(monitor.report(now=sched.now()))
         if shed_steps:
-            print(f"slo-shed: {shed_steps} decode steps shed at "
-                  f"admission")
+            print(f"slo-shed: {len(shed_steps)} decode steps shed at "
+                  f"admission: {shed_steps}")
     if recorder is not None:
         recorder.dump(args.sched_trace)
         print(f"sched trace ({len(recorder.events)} events) -> "

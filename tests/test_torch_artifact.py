@@ -265,6 +265,8 @@ _CHILD = textwrap.dedent("""
     import repro_torch.kernels
     import repro_torch.graph, repro_torch.memhier, repro_torch.obs
     import repro_torch.regions, repro_torch.sched
+    import repro_torch.roofline, repro_torch.launch.dryrun
+    import repro_torch.launch.api, repro_torch.launch.serve
     from repro_torch.core import isa
     from repro_torch.core import program as prog_mod
 

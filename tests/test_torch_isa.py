@@ -105,6 +105,131 @@ class TestRegistry:
                 **vars(jisa.get(name).spec))
 
 
+def _np(seed, n=257):
+    import numpy as np
+    return np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+
+
+# (itype, scalar_in, scalar_out, vector_in, vector_out), each within its
+# budget, and over-budget ones
+SPECS = [("I'", 0, 0, 1, 1), ("I'", 1, 0, 2, 1), ("I'", 1, 1, 2, 2),
+         ("S'", 2, 0, 1, 1), ("S'", 1, 1, 1, 1)]
+OVER = [("I'", 0, 0, 3, 1), ("I'", 2, 0, 1, 1), ("S'", 0, 0, 2, 1),
+        ("S'", 3, 0, 1, 1), ("R'", 0, 0, 1, 1), ("I'", 0, 0, 1, -1)]
+
+
+def _spec_kw(itype, si, so, vi, vo):
+    return dict(itype=itype, scalar_in=si, scalar_out=so, vector_in=vi,
+                vector_out=vo)
+
+
+class TestDefine:
+    """``Registry.define`` / ``bind_kernel`` / ``current_mode`` against the
+    JAX package's: the same definition through both decorators."""
+
+    @pytest.mark.parametrize("spec", SPECS)
+    def test_define_gives_the_reference_spec(self, spec):
+        from repro.core.isa import Registry as JRegistry
+
+        def body(*ops):
+            """a user's oracle"""
+            return ops[0]
+        got = Registry().define("u", **_spec_kw(*spec),
+                                pipeline_depth=3)(body)
+        want = JRegistry().define("u", **_spec_kw(*spec),
+                                  pipeline_depth=3)(body)
+        assert got.spec == OperandSpec(**vars(want.spec))
+        assert (got.name, got.pipeline_depth, got.doc, got.ref) == (
+            want.name, want.pipeline_depth, want.doc, want.ref)
+        assert got.kernel is None and got.template is None
+        assert got.differentiable is False
+
+    @pytest.mark.parametrize("spec", OVER)
+    def test_over_budget_definitions_raise_the_reference_errors(self, spec):
+        from repro.core.isa import Registry as JRegistry
+        with pytest.raises(ValueError) as got:
+            Registry().define("u", **_spec_kw(*spec))
+        with pytest.raises(ValueError) as want:
+            JRegistry().define("u", **_spec_kw(*spec))
+        assert str(got.value) == str(want.value)
+
+    def test_ref_dispatch_equals_reference(self):
+        import jax.numpy as jnp
+        import numpy as np
+        from repro.core.isa import Registry as JRegistry
+        treg, jreg = Registry(), JRegistry()
+        for reg in (treg, jreg):
+            reg.define("u_axpy", itype="I'", scalar_in=1, vector_in=2)(
+                lambda x, y, s: x * s + y)
+            reg.define("u_sub", itype="S'", scalar_in=2, vector_in=1)(
+                lambda x, a, b: (x - a) - b)
+        x, y = _np(0), _np(1)
+        got = treg.dispatch("u_axpy", torch.from_numpy(x),
+                            torch.from_numpy(y), 0.75, mode="ref")
+        want = jreg.dispatch("u_axpy", jnp.asarray(x), jnp.asarray(y), 0.75,
+                             mode="ref")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        got = treg.dispatch("u_sub", torch.from_numpy(x), 0.5, -2.0)
+        want = jreg.dispatch("u_sub", jnp.asarray(x), 0.5, -2.0)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        with pytest.raises(TypeError):
+            treg.dispatch("u_axpy", torch.from_numpy(x))
+
+    def test_bind_kernel_swaps_what_kernel_and_interpret_reach(self):
+        reg, calls = Registry(), []
+        reg.define("u")(lambda x: x)
+        x = torch.zeros(3)
+        with pytest.raises(ValueError, match="no GPU kernel bound"):
+            reg.dispatch("u", x, mode="interpret")
+        reg.bind_kernel("u", lambda x, interpret=False: calls.append(
+            ("first", interpret)) or x)
+        reg.dispatch("u", x, mode="interpret")
+        reg.bind_kernel("u", lambda x, interpret=False: calls.append(
+            ("second", interpret)) or x)
+        reg.dispatch("u", x, mode="interpret")
+        reg.dispatch("u", x, mode="kernel")
+        assert calls == [("first", True), ("second", True),
+                         ("second", False)]
+        with pytest.raises(KeyError):
+            reg.bind_kernel("absent", lambda x, interpret=False: x)
+
+    def test_define_with_kernel_and_differentiable(self):
+        reg = Registry()
+        kern = lambda x, interpret=False: x * 2   # noqa: E731
+        instr = reg.define("u", kernel=kern, differentiable=True)(
+            lambda x: x * 2)
+        assert instr.kernel is kern and instr.differentiable
+        x = torch.ones(3, requires_grad=True)
+        # a differentiable kernel path takes operands that require grad
+        assert reg.dispatch("u", x, mode="interpret").requires_grad
+        reg.define("v", kernel=kern, overwrite=True)(lambda x: x * 2)
+        with pytest.raises(ValueError, match="no backward"):
+            reg.dispatch("v", x, mode="interpret")
+
+    def test_overwrite_false_on_a_taken_name_raises_in_both(self):
+        from repro.core.isa import Registry as JRegistry
+        for reg in (Registry(), JRegistry()):
+            first = reg.define("u")(lambda x: x)
+            with pytest.raises(ValueError, match="already registered"):
+                reg.define("u")(lambda x: x + 1)
+            assert reg.get("u") is first
+            second = reg.define("u", overwrite=True)(lambda x: x + 1)
+            assert reg.get("u") is second
+
+    def test_module_aliases_and_current_mode(self):
+        from repro.core import isa as jisa
+        assert isa.define.__self__ is isa.registry
+        assert isa.bind_kernel.__self__ is isa.registry
+        # the port's default mode is auto (follows the tensors' device),
+        # the reference's ref; each follows use()
+        assert isa.current_mode() == "auto"
+        assert jisa.current_mode() == "ref"
+        for mode in ("ref", "interpret", "kernel"):
+            with isa.use(mode), jisa.use(mode):
+                assert isa.current_mode() == jisa.current_mode() == mode
+        assert isa.current_mode() == "auto"
+
+
 class TestDispatchRule:
     def test_auto_follows_tensor_device(self):
         assert resolve_auto("auto", (torch.zeros(3),)) == "ref"

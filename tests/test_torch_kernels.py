@@ -181,3 +181,65 @@ def test_bf16_chain_matches_emulator(cuda):
     # one bf16 rounding of an FMA-contracted value
     bound = 2 * 2.0 ** -8 * (1.5 * x.float().abs() + b.float().abs())
     assert bool(((got.float() - want.float()).abs() <= bound).all())
+
+
+# ---------------------------------------------------------------------------
+# solo shape-changing stages: each output at its own width and dtype
+# ---------------------------------------------------------------------------
+
+def _split_body(scalars, ins, carry, step):
+    x = ins[0]
+    return (x[..., 0::2], x.to(torch.bfloat16)), carry
+
+
+# two outputs of other widths and dtypes: x's even columns (rows, cols/2)
+# float32, and x in bfloat16 (rows, cols)
+SPLIT = KernelTemplate(
+    name="even_and_bf16", body=_split_body, n_vec_out=2, block_rows=8,
+    block_cols=1024, triton_body="""
+def even_and_bf16(x0, carry, step):
+    a, b = tl.split(tl.reshape(x0, (x0.shape[0], x0.shape[1] // 2, 2)))
+    return a, x0.to(tl.bfloat16), carry
+""", out_shapes=lambda x: [
+        torch.empty((x.shape[0], x.shape[1] // 2), device="meta"),
+        torch.empty(x.shape, dtype=torch.bfloat16, device="meta")])
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+@pytest.fixture(scope="module")
+def o1_templates():
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_k1", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.O1_TEMPLATES
+
+
+@pytest.mark.parametrize("shape", [(8, 1024), (24, 4096), (1024, 2048)])
+@pytest.mark.parametrize("name", ["pairsum", "to_bf16"])
+def test_shape_changing_stage_matches_emulator(cuda, o1_templates, name,
+                                               shape):
+    tpl, plain = o1_templates[name]
+    x = rand(shape[0] * shape[1], 7, cuda).view(shape)
+    before = K1.launches
+    got = tpl(x)
+    assert K1.launches == before + 1
+    want = tpl(x, interpret=True)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got), _bits(plain(x)))
+
+
+def test_two_outputs_of_their_own_widths(cuda):
+    x = rand(16 * 4096, 8, cuda).view(16, 4096)
+    even, low = SPLIT(x)
+    want_even, want_low = SPLIT(x, interpret=True)
+    assert even.shape == (16, 2048) and low.dtype == torch.bfloat16
+    assert torch.equal(even, want_even) and torch.equal(even, x[:, 0::2])
+    assert torch.equal(_bits(low), _bits(want_low))
+    assert torch.equal(_bits(low), _bits(x.to(torch.bfloat16)))

@@ -22,6 +22,7 @@ The Triton kernel itself runs only on the card (tests/test_torch_kernels.py).
 import importlib.util
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -338,14 +339,98 @@ class TestFusionContract:
             Program((three_in, KernelTemplate(name="t0", body=_copy_body,
                                               n_vec_in=0).stage()))
 
-    def test_shape_changing_stage_not_ported_yet(self):
-        shrink = KernelTemplate(name="half", body=_copy_body,
-                                out_shapes=lambda x: [x])
-        prog = Program((shrink.stage(),))
-        with pytest.raises(NotImplementedError, match="shape-changing"):
-            prog.call_blocks(torch.zeros((8, 128)), interpret=True)
+    @pytest.mark.parametrize("name", ["pairsum", "to_bf16"])
+    def test_shape_changing_stage_bit_exact_against_jax(self, smoke, name,
+                                                        fresh_caches):
+        """A solo stage with ``out_shapes`` through ``call_blocks`` (the
+        template launch): the JAX package's Pallas run in interpret mode
+        and the port's K1 emulator and oracle give the same bits (each
+        output element is one IEEE operation: an add, a rounding)."""
+        (x,) = smoke.make_inputs(11, [(16, 4096)], "cpu")
+        tpl, plain = smoke.O1_TEMPLATES[name]
+        want = bits(JAX_O1[name](jnp.asarray(x.numpy()), interpret=True))
+        got = tpl(x, interpret=True)
+        assert tuple(got.shape) == want.shape
+        assert got.dtype == (torch.float32 if name == "pairsum"
+                             else torch.bfloat16)
+        np.testing.assert_array_equal(bits(got), want)
+        np.testing.assert_array_equal(bits(plain(x)), want)
+
+    def test_shape_changing_stage_refuses_batching(self, smoke):
+        prog = smoke.PAIRSUM.program()
         with pytest.raises(ValueError, match="batch-coalesced"):
             prog.call_batch([(torch.zeros(8),), (torch.zeros(8),)])
+        with pytest.raises(ValueError, match="batch-coalesced"):
+            prog.call_items([[]], [[torch.zeros(8)], [torch.zeros(8)]],
+                            block_rows=8, block_cols=128)
+
+    def test_shape_changing_output_blocks_must_be_whole(self):
+        def widths(cols):
+            return KernelTemplate(
+                name="w", body=_copy_body, block_cols=128,
+                out_shapes=lambda x: [torch.empty((x.shape[0], cols),
+                                                  device="meta")])
+        with pytest.raises(ValueError, match="whole"):
+            widths(3)(torch.zeros((8, 256)), interpret=True)   # 1.5 a step
+        with pytest.raises(ValueError, match="rows"):
+            KernelTemplate(
+                name="r", body=_copy_body, block_cols=128,
+                out_shapes=lambda x: [torch.empty((4, 128), device="meta")]
+            )(torch.zeros((8, 128)), interpret=True)
+        # 96 of 128 columns is whole, so the emulator takes it; K1 needs a
+        # power of two and says so before it looks for a card
+        k1_95 = KernelTemplate(
+            name="k", body=lambda s, ins, c, st: ((ins[0][..., :96],), c),
+            block_cols=128, triton_body="def k(x0, carry, step):\n"
+                                        "    return x0, carry\n",
+            out_shapes=lambda x: [torch.empty((x.shape[0], 96),
+                                              device="meta")])
+        x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
+        assert torch.equal(k1_95(x, interpret=True), x[:, :96])
+        with pytest.raises(ValueError, match="power of two"):
+            k1_95(x, interpret=False)
+
+    def test_two_outputs_of_their_own_widths_and_dtypes(self):
+        tpl = KernelTemplate(
+            name="even_and_bf16", n_vec_out=2, block_cols=256,
+            body=lambda s, ins, c, st: ((ins[0][..., 0::2],
+                                         ins[0].to(torch.bfloat16)), c),
+            out_shapes=lambda x: [
+                torch.empty((x.shape[0], x.shape[1] // 2), device="meta"),
+                torch.empty(x.shape, dtype=torch.bfloat16, device="meta")])
+        x = torch.from_numpy(rand(16 * 1024, 13)).view(16, 1024)
+        even, low = tpl(x, interpret=True)
+        assert torch.equal(even, x[:, 0::2])
+        assert low.dtype == torch.bfloat16
+        assert torch.equal(low.view(torch.int16),
+                           x.to(torch.bfloat16).view(torch.int16))
+
+    def test_k1_gets_output_widths_only_for_shape_changing_stages(
+            self, smoke, monkeypatch, fresh_caches):
+        """What the kernel route hands K1's launch: no output specs for a
+        shape-preserving program (its kernel takes no ``BO`` widths), the
+        outputs' shapes and dtypes for a shape-changing one."""
+        seen = []
+        monkeypatch.setattr(fk, "check_cuda", lambda *a, **k: None)
+        monkeypatch.setattr(fk.K1Kernel, "compile",
+                            staticmethod(lambda *a, **k: (None, False)))
+        monkeypatch.setattr(fk.K1Kernel, "__call__",
+                            lambda self, *a: seen.append(a[-1]) or [])
+        x = torch.zeros((8, 2048))
+        isa.get("c0_copy").template(x)
+        smoke.PAIRSUM(x)
+        smoke.TO_BF16(x)
+        assert seen == [None, (((8, 1024), "float32"),),
+                        (((8, 2048), "bfloat16"),)]
+
+    def test_generated_source_stores_each_output_at_its_width(self, smoke):
+        for tpl in (smoke.PAIRSUM, smoke.TO_BF16):
+            src = fk.kernel_source((tpl.stage(),), (1,))
+            compile(src, "<k1>", "exec")
+            assert "BO0: tl.constexpr" in src
+            assert "tl.store(O0 + oofs0" in src
+        src = fk.kernel_source((isa.get("c0_copy").template.stage(),), (1,))
+        assert "BO0" not in src           # shape-preserving: unchanged
 
     def test_identity_equals_reference(self):
         for names in CHAINS:
@@ -573,6 +658,52 @@ def test_smoke_phase_c_matches_jax_and_solo(smoke, fresh_caches):
         assert torch.equal(g, fused(s, x, b, mode="interpret"))
         bound = smoke.fma_bound((s * x, b)).numpy()
         assert np.all(np.abs(g.numpy() - np.asarray(w_)) <= bound)
+
+
+def _jax_pairsum_body(scalars, ins, outs, carry, step):
+    x = ins[0][...]
+    outs[0][...] = x[:, 0::2] + x[:, 1::2]
+
+
+def _jax_to_bf16_body(scalars, ins, outs, carry, step):
+    outs[0][...] = ins[0][...].astype(jnp.bfloat16)
+
+
+# phase O1's stages, defined the same way in the JAX package
+JAX_O1 = {
+    "pairsum": JaxTemplate(
+        name="pairsum", body=_jax_pairsum_body, block_rows=8,
+        block_cols=1024, out_shapes=lambda x: [jax.ShapeDtypeStruct(
+            (x.shape[0], x.shape[1] // 2), x.dtype)]),
+    "to_bf16": JaxTemplate(
+        name="to_bf16", body=_jax_to_bf16_body, block_rows=8,
+        block_cols=1024, out_shapes=lambda x: [jax.ShapeDtypeStruct(
+            x.shape, jnp.bfloat16)]),
+}
+
+
+def bits(a) -> np.ndarray:
+    """An array's bits (bfloat16 as uint16), from torch or JAX."""
+    if isinstance(a, torch.Tensor):
+        return (a.view(torch.int16).numpy().view(np.uint16)
+                if a.dtype == torch.bfloat16 else a.numpy())
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.itemsize == 2 else a
+
+
+def test_smoke_phase_o1_matches_jax(smoke):
+    """O1 through ``isa.define``/``bind_kernel``: interpret and ref
+    dispatch against the JAX package's interpret run, bit for bit."""
+    smoke.define_o1()
+    (x,) = smoke.make_inputs(12, [(16, 2048)], "cpu")
+    got = smoke.phase_o1(x, "interpret")
+    ref = smoke.phase_o1(x, "ref")
+    for name, out in got.items():
+        want = bits(JAX_O1[name](jnp.asarray(x.numpy()), interpret=True))
+        np.testing.assert_array_equal(bits(out), want)
+        np.testing.assert_array_equal(bits(ref[name]), want)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        smoke.phase_o1(x, "kernel")
 
 
 def test_smoke_phase_d_matches_jax(smoke):

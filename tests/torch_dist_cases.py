@@ -428,3 +428,42 @@ def failing_rank(rank: int) -> None:
     if rank == 1:
         raise RuntimeError("rank 1 fails")
     C.all_reduce_(torch.ones(3), mesh.group("d"))
+
+
+# ---------------------------------------------------------------------------
+# the dry run against a real run (2 ranks, (data 2, model 1))
+# ---------------------------------------------------------------------------
+
+def real_cell_ranks(rank: int, cases: list) -> dict:
+    """Each (name, cfg, shape) train cell run for real as this rank of a
+    (2, 1) mesh, on its shards from ``init_params(mesh=)`` and its rows,
+    under ``roofline.analysis.count_step``: its FLOPs and its transport's
+    collective traffic by kind, and whether every argument has the shape
+    of ``api.lower_cell``'s meta argument."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import api
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import init_params, tree_items
+    from repro_torch.roofline.analysis import collective_bytes_of, count_step
+    mesh = Mesh((2, 1), ("data", "model"))
+    out = {}
+    for name, cfg, shape in cases:
+        fn, meta, in_sp, _, _ = api.lower_cell(cfg, shape, mesh)
+        g = torch.Generator().manual_seed(0)
+        state = api.make_train_state(cfg, init_params(
+            cfg, g, "cpu", mesh, in_sp[0]["params"]))
+        tokens = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab, (shape.global_batch, shape.seq_len + 1),
+            dtype=np.int32))
+        batch = {k: sharding.local_shard(v, in_sp[1][k], mesh).contiguous()
+                 for k, v in (("tokens", tokens[:, :-1]),
+                              ("targets", tokens[:, 1:]))}
+        def layout(*trees):
+            return {(i, path): (tuple(t.shape), t.dtype)
+                    for i, tree in enumerate(trees)
+                    for path, t in tree_items(tree)}
+        shapes_ok = layout(state, batch) == layout(*meta)
+        c = count_step(fn, (state, batch))
+        out[name] = {"flops": c["flops"], "shapes_ok": shapes_ok,
+                     "coll": collective_bytes_of(c["collectives"])}
+    return out
