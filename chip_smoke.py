@@ -175,11 +175,24 @@ Phases (inputs from numpy with a fixed seed):
      serve.main --model-parallel 2 (1×2) and on 2×1, against one
      process's tokens; serve.main --sched --slo-shed on 2×1 with a
      --slo-ms of 0.5 that every decode step misses (rank 0's SLO monitor
-     decides each admission and broadcasts it). Prints one
-     ``distributed`` JSON line (each case's seconds, collective seconds,
-     bytes staged through host, launches, rank peaks) before the kernels
-     line, whose rows gain K7 and K3 at N2's router shapes, K4 at N3's
-     and N4's and K1 at N5's chunk
+     decides each admission and broadcasts it). N7: the dense layers
+     split over ``model`` on a (data 1, model 2) mesh, each rank on its
+     heads, FFN columns and vocabulary block — N7a trains Mamba2-1.3B
+     uncut (48 layers, every published width, bf16, AdamW, remat full,
+     SP on) for 2 steps of 2 × 4096 tokens, K4 scanning each rank's
+     (2, 16, 32, 64, 128) states (96 forward and 48 reverse launches a
+     step), after one process's loss on the same params and batches and
+     a 2-layer float32 gradient cut of one process (the ranks take its
+     params and batch); N7b serves Llama-3-8B uncut (32 layers, bf16,
+     attn_impl "kernel", 8.0 GB of shards a rank) on 4 × 2048 prompts
+     with 16 greedy tokens, K8 on each rank's (4, 16, 2048, 128) heads
+     (32 launches a rank in prefill), after one process serves the same
+     prompts and the float32 forward of the same weights gives the
+     logits both are held against. Prints one ``distributed`` JSON line
+     (each case's seconds split into compute and collective, bytes
+     staged through host, launches, rank peaks) before the kernels
+     line, whose rows gain K7 and K3 at N2's router shapes, K4 at N3's,
+     N4's and N7a's, K8 at N7b's and K1 at N5's chunk
   O  O1: two shape-changing instructions defined as a user defines them
      (isa.define from the oracle, isa.bind_kernel for the template's
      launch): pairsum (out[:, j] = x[:, 2j] + x[:, 2j+1], (rows, cols/2))
@@ -319,8 +332,35 @@ Tolerances (fixed before any run):
     k1_batch_kernel a rank, both ranks' placements equal; N6: the resume
     prints "resumed from step 4 on mesh 2x1", the served tokens equal
     one process's; the --slo-shed run sheds the same steps on both
-    ranks, at least one, and both return the same tokens; each rank's
-    peak under N_RANK_PEAK (counted there);
+    ranks, at least one, and both return the same tokens; N7a: each
+    step's loss within N7A_LOSS_RTOL = 1e-3 of one process's on the same
+    params and rows (each of the 48 layers' exit rounds the two ranks'
+    bf16 partial sums and their sum where one process rounds one
+    product, ≤ 1.5 bf16 ulps of the layer's update; the loss, a mean
+    over 8192 tokens of a function whose gradient in the logits has L1
+    norm ≤ 2, moves by at most twice the largest logit's change, and
+    1e-3 of ≈ ln 50280 = 10.8 allows 5e-3 at every token at once), K4
+    96 forward and 48 reverse a step a rank on (2, 16, 32, 64, 128)
+    only, the gradient cut's reduced shards within TRAIN_GRAD_REL = 1e-4
+    of one process's max |g| (float32, as L), K4 at the rank's shape as
+    L holds it; N7b: each rank's prefill logits (gathered over
+    ``model``) within N7B_F32_FACTOR = 4 times one process's distance
+    from the float32 forward of the same weights (the split rounds each
+    row-parallel product twice where one process rounds once, so its
+    bf16 error is of the same order: twice, with room), equal on both
+    ranks, K8 32 launches a rank on (4, 16, 2048, 128) and no other
+    kernel; that bound is loose by nature: at the reference's random
+    init a deep model is chaotic (on the CPU, a 256-wide Llama-3 of 16
+    layers: one process's float32 logits 0.46 of their max from its
+    float64 ones, 3.4e-3 at 8 layers, 3.9e-6 at 2),
+    so the split is also held where rounding stays small, on a float32
+    cut of N7B_CUT_LAYERS = 2 layers at every published width (K8's
+    float32 path, 2 launches a rank): its logits within N7B_CUT_REL =
+    1e-4 of their max of one process's (the 2-layer gradient cut's
+    bound; float32 rounding over 4096-term products and two layers,
+    against 2.6e-6 measured at 256 wide on the CPU); the greedy tokens' agreement with one process printed, not
+    gated (an argmax of two logits a bf16 rounding apart may flip); each
+    rank's peak under N_RANK_PEAK (counted there);
   * O1: each instruction's K1 result bit for bit against the emulator,
     the oracle and the one PyTorch call (x.view(r, c // 2, 2).sum(-1):
     one IEEE add an element; x.to(torch.bfloat16): one rounding to
@@ -2831,6 +2871,13 @@ N3_HELD_REL = 1 / 16     # params held where that slope term is ≤ 1/16
 N3_UPDATE_TOL = 1 / 8    # then |δp| ≤ one bf16 ulp + lr/8 (docstring)
 N4_STAGES, N4_MICRO, N4_SEQ = 4, 8, 2048
 N5_RANKS = 2
+N7_MESH = (1, 2)                    # (data, model): the dense layers split
+N7A_BATCH, N7A_STEPS = 2, 2         # N7a: Mamba2-1.3B uncut, 2 × 4096
+N7A_LOSS_RTOL = 1e-3                # each step's loss (docstring)
+N7B_ARCH = "llama3_8b"              # N7b: served uncut, K8 in prefill
+N7B_BATCH, N7B_PROMPT, N7B_GEN = 4, 2048, 16
+N7B_F32_FACTOR = 4.0                # logits off float32, of one process's
+N7B_CUT_LAYERS, N7B_CUT_REL = 2, 1e-4   # N7b's float32 cut (docstring)
 
 
 def n2_config():
@@ -2866,6 +2913,82 @@ def largest_leaf(cfg) -> int:
     return max(math.prod(s.shape) for _, s in tree_items(param_specs(cfg)))
 
 
+def n7b_config():
+    """Llama-3-8B at every published width and depth, attention on K8."""
+    return dataclasses.replace(get_config(N7B_ARCH), attn_impl="kernel")
+
+
+def n7b_cut_config():
+    """N7b's float32 cut: N7B_CUT_LAYERS layers, every width published,
+    attention on K8 (its float32 path)."""
+    return dataclasses.replace(n7b_config(), n_layers=N7B_CUT_LAYERS,
+                               param_dtype="float32", act_dtype="float32")
+
+
+def rank_shapes(cfg, mesh_shape) -> dict:
+    """Each param leaf's shape on one rank of a (data, model) mesh of
+    ``mesh_shape`` (the shards the rules give)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.models.params import abstract_params, logical_axes
+    mesh = AbstractMesh(mesh_shape, ("data", "model"))
+    specs = dict(tree_items(sharding.tree_specs(
+        logical_axes(cfg), abstract_params(cfg), mesh)))
+    return {path: sharding.local_shape(s.shape, specs[path], mesh)
+            for path, s in tree_items(param_specs(cfg))}
+
+
+def rank_weight_bytes(cfg, mesh_shape) -> int:
+    item = DTYPES[cfg.param_dtype].itemsize
+    return sum(math.prod(v) * item
+               for v in rank_shapes(cfg, mesh_shape).values())
+
+
+def tp_train_peak_limit(cfg, batch: int, seq: int, m: int) -> float:
+    """A rank's limit in N7a: train_peak_limit's count with the dense
+    layers split over ``m`` model peers under SP — the rank's params
+    (its heads, ``d_inner`` block and vocabulary block; the whole leaves
+    whole) in its seven copies; its saved layer inputs, its sequence
+    block; one layer's recompute and backward on the gathered sequence
+    and its heads (eight (B, C, Q, Q, H/m) float32 tensors, 24 float32
+    (B, S, d_inner/m) activations, four more float32 (B, S, D) for the
+    gathered input and its gradient); the logits of its vocabulary
+    block (four (B·S, V/m) float32); the update's eleven param copies
+    and six float32 copies of its largest leaf."""
+    params = rank_weight_bytes(cfg, (1, m))
+    q = min(cfg.ssm_chunk, seq)
+    quad = batch * seq * q * (cfg.ssm_heads // m) * 4
+    act = batch * seq * (cfg.d_inner // m) * 4
+    gathered = batch * seq * cfg.d_model * 4
+    logits = batch * seq * (cfg.vocab_padded // m) * 4
+    saved = cfg.n_layers * batch * (seq // m) * cfg.d_model * 2
+    largest = max(math.prod(v) for v in rank_shapes(cfg, (1, m)).values())
+    forward_backward = (7 * params + saved + 8 * quad + 24 * act
+                        + 4 * gathered + 4 * logits)
+    update = 11 * params + 6 * 4 * largest
+    return max(forward_backward, update)
+
+
+def tp_serve_peak_limit(cfg, batch: int, prompt: int, gen: int,
+                        m: int) -> float:
+    """A rank's limit in N7b: its weights; the KV cache of its heads
+    twice (the layers' caches and their stack) at prompt + gen
+    positions; prefill's largest intermediates on the gathered sequence:
+    ten (B, S, D) bf16 activations, three (B, S, d_ff/m) bf16 and one
+    float32 for the MLP, and the rank's q, k, v and output of K8
+    (B, H/m, S, hd) bf16 with their repeated KV heads; two (B, V)
+    float32 logits."""
+    kv = (cfg.n_kv_heads // m if cfg.n_kv_heads % m == 0
+          else cfg.n_kv_heads)
+    cache = 2 * cfg.n_layers * batch * (prompt + gen) * kv * cfg.head_dim * 2
+    act = batch * prompt * cfg.d_model * 2
+    ffn = batch * prompt * (cfg.d_ff // m) * 2
+    heads = batch * (cfg.n_heads // m) * prompt * cfg.head_dim * 2
+    logits = batch * cfg.vocab_padded * 4
+    return (rank_weight_bytes(cfg, (1, m)) + 2 * cache + 10 * act
+            + 5 * ffn + 6 * heads + 2 * logits)
+
+
 #: each rank's device-memory limit, by case (see PERF.md, phase N): N1
 #: the base params, the rank's shifted copy and the synced ones, and six
 #: float32 copies of the largest leaf while the ring syncs it (its
@@ -2883,7 +3006,11 @@ N_RANK_PEAK = {
     "N3": fsdp_peak_limit(get_config(N_ARCH), TRAIN_BATCH // N3_RANKS,
                           TRAIN_SEQ, N3_RANKS),
     "N4": weight_bytes(get_config(N_ARCH)) + 3e9,
-    "N5": 3e9, "N6": 3e9}
+    "N5": 3e9, "N6": 3e9,
+    "N7a": tp_train_peak_limit(get_config(N_ARCH), N7A_BATCH, TRAIN_SEQ,
+                               N7_MESH[1]),
+    "N7b": tp_serve_peak_limit(n7b_config(), N7B_BATCH, N7B_PROMPT,
+                               N7B_GEN, N7_MESH[1])}
 PEAK_MEM_LIMIT["N"] = max(PEAK_MEM_LIMIT["L"], moe_bytes(n2_config()) + 8e9)
 
 
@@ -3253,8 +3380,139 @@ def n6_rank(rank: int, runs: list) -> dict:
     return {"runs": out}
 
 
+def n7a_grad_config(cfg):
+    """N7a's gradient cut: TRAIN_GRAD_LAYERS layers in float32, every
+    width published (as phase L's)."""
+    return dataclasses.replace(cfg, n_layers=TRAIN_GRAD_LAYERS,
+                               param_dtype="float32", act_dtype="float32")
+
+
+def n7a_rank(rank: int, batches: list, ref_path: str) -> dict:
+    """Mamba2-1.3B trained uncut with its dense layers split over
+    ``model`` on a (data 1, model 2) mesh under SP: each rank draws its
+    shards (its 32 of 64 SSM heads, its half of the vocabulary) and
+    trains on the whole batch, each layer's scans on its heads. Then the
+    2-layer float32 gradient cut of the parent's saved params and batch,
+    its reduced shards held against the parent's one-process gradient
+    leaf by leaf."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = get_config(N_ARCH)
+    mesh = Mesh(N7_MESH, ("data", "model"))
+    specs = api.state_specs(cfg, mesh)
+    state = api.make_train_state(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 70), dev, mesh,
+        specs["params"]))
+    step_fn = api.make_train_step(cfg, mesh=mesh, specs=specs)
+    steps = []
+    for i, b in enumerate(batches):
+        rows = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+        K4.launches = K4.reverse_launches = K7.launches = 0
+        K3.launches = K8.launches = 0
+        with Tap(ps, "chunk_scan_state_kernel",
+                 lambda a, kw, o: tuple(o.shape)) as t4:
+            (state, metrics), secs, coll, staged = _timed(
+                lambda: step_fn(state, rows))
+        steps.append({"step": i, "seconds": secs, "collective_s": coll,
+                      "compute_s": secs - coll, "staged_bytes": staged,
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "k4_shapes": sorted(set(t4.calls)),
+                      "launches": {"K4 forward": K4.launches,
+                                   "K4 reverse": K4.reverse_launches,
+                                   "K7": K7.launches, "K3": K3.launches,
+                                   "K8": K8.launches}})
+        del metrics
+    peak = torch.cuda.max_memory_allocated()
+    del state, step_fn
+    torch.cuda.empty_cache()
+    # the gradient cut
+    ref = torch.load(ref_path, mmap=True)
+    gcfg = n7a_grad_config(cfg)
+    gspecs = api.state_specs(gcfg, mesh)["params"]
+    flat = dict(tree_items(gspecs))
+    params = {}
+    for path, spec in flat.items():
+        node = params
+        *parents, leaf = path.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = sharding.local_shard(ref["params"][path], spec,
+                                          mesh).contiguous().to(dev)
+    batch = {k: v.to(dev) for k, v in ref["batch"].items()}
+    with sharding.use(mesh, gspecs):
+        grads, metrics = api.make_grad_fn(gcfg)(params, batch)
+    grads = api.reduce_grads(grads, gspecs, mesh)
+    ratio = {}
+    for path, g in tree_items(grads):
+        want = sharding.local_shard(ref["grads"][path], flat[path],
+                                    mesh).to(dev)
+        ratio[path] = (float((g.double() - want.double()).abs().max())
+                       / max(ref["gmax"][path], 1e-30))
+    return {"steps": steps, "peak_bytes": peak, "grad_ratio_by_leaf": ratio,
+            "grad_loss": float(metrics["loss"])}
+
+
+def n7b_rank(rank: int, prompts: np.ndarray) -> dict:
+    """Llama-3-8B served uncut with its dense layers split over
+    ``model`` on a (data 1, model 2) mesh (serve.generate inside
+    sharding.use, as serve.main runs it): each rank draws its 8.0 GB of
+    shards and prefills the 4 × 2048 prompts (SP: each layer's residual
+    the rank's 1024 positions, K8 on its 16 of 32 heads), then 16 greedy
+    tokens. Returns prefill's gathered last-position logits, the tokens
+    and K8's launches."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.params import (abstract_params, init_params,
+                                           logical_axes)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = n7b_config()
+    mesh = Mesh(N7_MESH, ("data", "model"))
+    specs = sharding.tree_specs(logical_axes(cfg), abstract_params(cfg),
+                                mesh)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 72), dev, mesh, specs)
+    held = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    prompts = torch.from_numpy(prompts).to(dev)
+    with torch.no_grad(), sharding.use(mesh, specs), \
+            Tap(serve, "sample") as ts, Tap(fa, "K8",
+                                             lambda a, kw, o: tuple(
+                                                 a[0].shape)) as t8:
+        K8.launches = K4.launches = K7.launches = K3.launches = 0
+        (tokens, prefill_s, decode_s), secs, coll, staged = _timed(
+            lambda: serve.generate(cfg, params, prompts, N7B_GEN))
+        launches = {"K8": K8.launches, "K4": K4.launches,
+                    "K7": K7.launches, "K3": K3.launches}
+    logits = ts.calls[0][0][0].float().cpu()
+    del params, ts
+    torch.cuda.empty_cache()
+    # the float32 cut: the rank's shards of its own draw, prefill alone
+    ccfg = n7b_cut_config()
+    cspecs = sharding.tree_specs(logical_axes(ccfg), abstract_params(ccfg),
+                                 mesh)
+    cut = init_params(ccfg, torch.Generator(device=dev).manual_seed(
+        SEED + 77), dev, mesh, cspecs)
+    with torch.no_grad(), sharding.use(mesh, cspecs):
+        K8.launches = 0
+        cut_logits = M.prefill(ccfg, cut, {"tokens": prompts})[0].cpu()
+        cut_k8 = K8.launches
+    return {"logits": logits, "cut_logits": cut_logits, "cut_k8": cut_k8,
+            "tokens": tokens.cpu().numpy(), "launches": launches,
+            "k8_shapes": sorted(set(t8.calls)), "seconds": secs,
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "collective_s": coll, "compute_s": secs - coll,
+            "staged_bytes": staged, "weight_bytes": held}
+
+
 RANK_CASES = {"N1": n1_rank, "N2": n2_rank, "N3": n3_rank, "N4": n4_rank,
-              "N5": n5_rank, "N6": n6_rank}
+              "N5": n5_rank, "N6": n6_rank, "N7a": n7a_rank,
+              "N7b": n7b_rank}
 
 
 def _rank_peaks(check, case: str, ranks: list[dict]) -> list[int]:
@@ -3674,6 +3932,224 @@ def run_n6(dev, check, rows) -> dict:
             "spawn_s": [four[0]["spawn_s"], two[0]["spawn_s"]]}
 
 
+def run_n7a(dev, check, rows) -> dict:
+    """N7a: the one-process references on the parent — each step's loss
+    at the init params (lr 0 at step 0, so step 1 sees them too) and
+    the 2-layer float32 gradient cut with carrying decays — then the
+    ranks, then K4 at a rank's (2, 16, 32, 64, 128) as phase L holds
+    it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(N_ARCH)
+    n_l = cfg.n_layers
+    data = SyntheticLMData(cfg.vocab, TRAIN_SEQ, N7A_BATCH, SEED + 71)
+    batches = [data.host_batch(i) for i in range(N7A_STEPS)]
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 70), dev)
+    ref_losses = []
+    with torch.no_grad():
+        for b in batches:
+            loss, _ = M.loss_fn(cfg, params, to_device(b, dev))
+            ref_losses.append(float(loss))
+    del params
+    torch.cuda.empty_cache()
+    gcfg = n7a_grad_config(cfg)
+    gparams = M.init_params(gcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 73), dev)
+    carrying_decays(gparams, gcfg.ssm_chunk, SEED + 74)
+    gbatch = to_device(batches[0], dev)
+    grads, metrics = api.make_grad_fn(gcfg)(gparams, gbatch)
+    ref_path = ROOT / "build" / "n7a_reference.pt"
+    torch.save({"params": {p: t.cpu() for p, t in tree_items(gparams)},
+                "grads": {p: g.cpu() for p, g in tree_items(grads)},
+                "gmax": {p: float(g.abs().max())
+                         for p, g in tree_items(grads)},
+                "batch": {k: v.cpu() for k, v in gbatch.items()}}, ref_path)
+    grad_loss = float(metrics["loss"])
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    del gparams, grads, metrics, gbatch
+    torch.cuda.empty_cache()
+    try:
+        ranks = spawn_ranks("N7a", N7_MESH[1], batches, str(ref_path))
+    finally:
+        ref_path.unlink(missing_ok=True)
+    shape = (N7A_BATCH, TRAIN_SEQ // cfg.ssm_chunk,
+             cfg.ssm_heads // N7_MESH[1], cfg.ssm_headdim, cfg.ssm_state)
+    want_launches = {"K4 forward": 2 * n_l, "K4 reverse": n_l, "K7": 0,
+                     "K3": 0, "K8": 0}
+    for r, res in enumerate(ranks):
+        for i, st in enumerate(res["steps"]):
+            check.true(f"N7a rank {r} step {i}: loss {st['loss']} vs one "
+                       f"process's {ref_losses[i]}, rtol {N7A_LOSS_RTOL}",
+                       abs(st["loss"] - ref_losses[i])
+                       <= N7A_LOSS_RTOL * abs(ref_losses[i]))
+            check.true(f"N7a rank {r} step {i}: launches {st['launches']}, "
+                       f"want {want_launches}",
+                       st["launches"] == want_launches)
+            check.true(f"N7a rank {r} step {i}: K4 scanned {st['k4_shapes']}"
+                       f", want {shape} only",
+                       st["k4_shapes"] == [shape])
+        bad = {k: v for k, v in res["grad_ratio_by_leaf"].items()
+               if not v <= TRAIN_GRAD_REL}
+        check.true(f"N7a rank {r}: gradient cut leaves over {TRAIN_GRAD_REL}"
+                   f" of one process's max |g|: {bad}", not bad)
+        check.true(f"N7a rank {r}: gradient cut loss {res['grad_loss']} vs "
+                   f"{grad_loss}", abs(res["grad_loss"] - grad_loss)
+                   <= TRAIN_GRAD_REL * abs(grad_loss))
+    out = {"mesh": list(N7_MESH), "model": N_ARCH, "reduced": [],
+           "batch": N7A_BATCH, "seq": TRAIN_SEQ, "sp": cfg.sp,
+           "one_process_losses": ref_losses, "loss_rtol": N7A_LOSS_RTOL,
+           "reference_peak_bytes": ref_peak,
+           "grad_cut": {"layers": TRAIN_GRAD_LAYERS, "dtype": "float32",
+                        "bound": TRAIN_GRAD_REL, "loss_one_process":
+                        grad_loss},
+           "ranks": [{"steps": res["steps"],
+                      "grad_cut_worst_ratio": max(
+                          res["grad_ratio_by_leaf"].values()),
+                      "grad_cut_ratio_by_leaf": res["grad_ratio_by_leaf"]}
+                     for res in ranks],
+           "rank_peak_bytes": _rank_peaks(check, "N7a", ranks),
+           "rank_peak_limit_bytes": N_RANK_PEAK["N7a"],
+           "spawn_s": ranks[0]["spawn_s"]}
+    out["k4_at_rank_shape"] = hold_train_scan(
+        dev, check, rows, shape, ranks[0]["steps"][-1]["launches"],
+        label="N7a", counted_in="a phase N7a step on one rank (48 layers, "
+        "its 32 of 64 heads)")
+    return out
+
+
+def to_float32_(tree: dict) -> None:
+    """Every leaf of ``tree`` replaced by its float32 copy, one at a time
+    (each bf16 leaf freed as its copy is made)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            to_float32_(v)
+        else:
+            tree[k] = v.float()
+
+
+def run_n7b(dev, check, rows) -> dict:
+    """N7b: one process serves the same prompts with the same weights
+    (bf16, its tokens and prefill logits), then the float32 forward of
+    those weights (chunked attention, no TF32) gives the logits both are
+    held against, and one process prefills the float32 cut; then the
+    ranks; then K8 at a rank's (4, 16, 2048, 128)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = n7b_config()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + 72), dev)
+    prompts = serve_prompts(SEED + 75, cfg, N7B_BATCH, N7B_PROMPT, dev)
+    with torch.no_grad(), Tap(serve, "sample") as ts:
+        K8.launches = 0
+        t0 = time.perf_counter()
+        tokens, prefill_s, decode_s = serve.generate(cfg, params, prompts,
+                                                     N7B_GEN)
+        one_s = time.perf_counter() - t0
+        one_k8 = K8.launches
+    one = ts.calls[0][0][0].float()
+    del ts
+    to_float32_(params)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                act_dtype="float32", attn_impl="chunked")
+    with torch.no_grad():
+        f32, cache = M.prefill(cfg32, params, {"tokens": prompts})
+    del params, cache
+    ccfg = n7b_cut_config()
+    cut = M.init_params(ccfg, torch.Generator(device=dev).manual_seed(
+        SEED + 77), dev)
+    with torch.no_grad():
+        cut_one = M.prefill(ccfg, cut, {"tokens": prompts})[0]
+    del cut
+    ref_peak = torch.cuda.max_memory_allocated(dev)
+    torch.cuda.empty_cache()
+    ranks = spawn_ranks("N7b", N7_MESH[1], prompts.cpu().numpy())
+    n_l = cfg.n_layers
+    err_one = max_abs(one, f32)
+    shape = (N7B_BATCH, cfg.n_heads // N7_MESH[1], N7B_PROMPT, cfg.head_dim)
+    info = []
+    for r, res in enumerate(ranks):
+        got = res["logits"].to(dev)
+        check.shaped(f"N7b rank {r} prefill logits", got,
+                     (N7B_BATCH, cfg.vocab))
+        check.true(f"N7b rank {r}: prefill logits not finite",
+                   bool(torch.isfinite(got).all()))
+        err = max_abs(got, f32)
+        check.true(f"N7b rank {r}: prefill logits {err} from the float32 "
+                   f"forward, over {N7B_F32_FACTOR} × one process's "
+                   f"{err_one}", err <= N7B_F32_FACTOR * err_one)
+        check.true(f"N7b rank {r}: launches {res['launches']}, want K8 "
+                   f"{n_l} and no other",
+                   res["launches"] == {"K8": n_l, "K4": 0, "K7": 0, "K3": 0})
+        check.true(f"N7b rank {r}: K8 ran on {res['k8_shapes']}, want "
+                   f"{shape}", res["k8_shapes"] == [shape])
+        check.true(f"N7b rank {r}: logits differ from rank 0's",
+                   torch.equal(res["logits"], ranks[0]["logits"]))
+        cut_err = max_abs(res["cut_logits"].to(dev), cut_one) / float(
+            cut_one.abs().max())
+        check.true(f"N7b rank {r}: the float32 {N7B_CUT_LAYERS}-layer cut's "
+                   f"logits {cut_err} of their max from one process's, "
+                   f"bound {N7B_CUT_REL}", cut_err <= N7B_CUT_REL)
+        check.true(f"N7b rank {r}: the cut launched K8 {res['cut_k8']} "
+                   f"times, want {N7B_CUT_LAYERS}",
+                   res["cut_k8"] == N7B_CUT_LAYERS)
+        agree = float(np.mean(res["tokens"] == tokens.cpu().numpy()))
+        info.append({"err_vs_float32": err,
+                     "cut_err_over_max": cut_err,
+                     "err_vs_one_process": max_abs(got, one),
+                     "token_agreement_with_one_process": agree,
+                     **{k: res[k] for k in (
+                         "seconds", "prefill_s", "decode_s", "collective_s",
+                         "compute_s", "staged_bytes", "launches",
+                         "weight_bytes")}})
+        del got
+    print(f"N7b token agreement with one process (not gated): "
+          f"{[i['token_agreement_with_one_process'] for i in info]}",
+          flush=True)
+    out = {"mesh": list(N7_MESH), "model": N7B_ARCH, "reduced": [],
+           "attn_impl": cfg.attn_impl, "batch": N7B_BATCH,
+           "prompt_len": N7B_PROMPT, "gen": N7B_GEN,
+           "weight_bytes": weight_bytes(cfg),
+           "one_process": {"seconds": one_s, "prefill_s": prefill_s,
+                           "decode_s": decode_s, "K8": one_k8,
+                           "err_vs_float32": err_one,
+                           "float32_logit_absmax": float(f32.abs().max())},
+           "cut": {"layers": N7B_CUT_LAYERS, "dtype": "float32",
+                   "bound_of_max": N7B_CUT_REL,
+                   "logit_absmax": float(cut_one.abs().max())},
+           "f32_factor": N7B_F32_FACTOR, "reference_peak_bytes": ref_peak,
+           "ranks": info,
+           "rank_peak_bytes": _rank_peaks(check, "N7b", ranks),
+           "rank_peak_limit_bytes": N_RANK_PEAK["N7b"],
+           "spawn_s": ranks[0]["spawn_s"]}
+    del one, f32, cut_one
+    # K8 at a rank's shape, off the path: seeded inputs at the path's scale
+    g = torch.Generator(device=dev).manual_seed(SEED + 76)
+    q, kk, vv = (torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    o8 = fa.K8(q, kk, vv)
+    plain8 = fa.flash_attention_plain(q, kk, vv)
+    res8 = hold_attention(check, "N7b K8 at a rank's heads", q, kk, vv, o8,
+                          plain8)
+    res8.update(hold_f64(check, "N7b K8 at a rank's heads", q, kk, vv, o8,
+                         plain8, UNIT_SCALE_NOISE))
+    bh, sq, d = shape[0] * shape[1], shape[2], shape[3]
+    pairs = sq * (sq + 1) // 2
+    rows.append(entry(
+        f"N7b flash_attention {shape} bfloat16 causal (prefill on a rank's "
+        f"heads)", ranks[0]["launches"]["K8"], res8["max_abs_err_plain"],
+        time_ms(lambda: fa.K8(q, kk, vv)),
+        time_ms(lambda: fa.flash_attention_plain(q, kk, vv), reps=5),
+        4 * q.numel() * q.element_size(), 4 * bh * pairs * d,
+        time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kk, vv, is_causal=True)),
+        kernel="K8", peak="bf16 tensor",
+        launches_counted_in="phase N7b, one rank's prefill (32 layers)",
+        **res8))
+    del q, kk, vv, o8, plain8
+    return out
+
+
 def n6_shed_steps(text: str) -> list[int]:
     """The decode steps a ``serve.main --slo-shed`` run printed as shed."""
     import re
@@ -3693,7 +4169,22 @@ def run_phase_n(dev, check, rows):
     out = {"card": CARD, "transport": "gloo over loopback, CUDA tensors "
            "staged through pinned host buffers; every rank on cuda:0"}
     for name, fn in (("N1", run_n1), ("N2", run_n2), ("N3", run_n3),
-                     ("N4", run_n4), ("N5", run_n5), ("N6", run_n6)):
+                     ("N4", run_n4), ("N5", run_n5), ("N6", run_n6),
+                     ("N7a", run_n7a), ("N7b", run_n7b)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev, check, rows)
+        out[name]["case_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        print(f"phase {name}: {out[name]['case_s']:.1f} s", file=sys.stderr,
+              flush=True)
+    print(json.dumps({"distributed": out}, default=str), flush=True)
+
+
+def run_phase_n7(dev, check, rows):
+    """N7 alone (``experiments/smoke_phases.py --phases n7``): the dense
+    layers split over ``model``, training (N7a) and serving (N7b)."""
+    out = {"card": CARD}
+    for name, fn in (("N7a", run_n7a), ("N7b", run_n7b)):
         t0 = time.perf_counter()
         out[name] = fn(dev, check, rows)
         out[name]["case_s"] = time.perf_counter() - t0

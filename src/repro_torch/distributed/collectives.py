@@ -19,13 +19,17 @@ collective on it is logged and returns its outputs unfilled, so one
 process can walk one rank's step of a mesh of any size on meta tensors
 (``launch/dryrun.py``).
 
-**Autograd.** :func:`all_reduce`, :func:`all_gather` and
-:func:`all_to_all` are ``torch.autograd.Function``s whose backward is
-the adjoint of their forward under the SPMD objective Σ_ranks loss_r:
-an all-reduce's is an all-reduce, an all-gather's a reduce-scatter (an
-all-reduce and a slice: gloo has no reduce-scatter for every case), an
-all-to-all's the reverse all-to-all. Every rank runs the same backward,
-so the collectives meet.
+**Autograd.** :func:`all_reduce`, :func:`all_gather`,
+:func:`reduce_scatter` and :func:`all_to_all` are
+``torch.autograd.Function``s whose backward is the adjoint of their
+forward under the SPMD objective Σ_ranks loss_r: an all-reduce's is an
+all-reduce, an all-gather's a reduce-scatter and a reduce-scatter's an
+all-gather, an all-to-all's the reverse all-to-all. Every rank runs the
+same backward, so the collectives meet. The model's tensor-parallel
+regions use them as they are (``sharding.ModelSplit``): model peers
+compute the same loss, so the world's sum counts each row's loss once a
+model peer, and every rank's gradient of a leaf is its share of that
+sum, whether the leaf is split over ``model`` or whole.
 
 **The ring.** :func:`compressed_ring_allreduce` is the reference's
 int8 block-quantised ring (a reduce-scatter, then an all-gather, each
@@ -209,6 +213,24 @@ def gather_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def scatter_dim(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum of the group's ``x`` (of one shape), this rank's block of
+    it along ``dim`` (equal blocks in group-rank order)."""
+    n = size(group)
+    if n == 1:
+        return x
+    dist = _dist()
+    src = x.movedim(dim, 0).contiguous()
+    if src.shape[0] % n:
+        raise ValueError(f"dim {dim} of {x.shape[dim]} does not split in "
+                         f"{n}")
+    out = src.new_empty((src.shape[0] // n,) + src.shape[1:])
+    _run(group, lambda o, i: dist.reduce_scatter_tensor(o[0], i[0],
+                                                        group=group),
+         [out], [src], "reduce-scatter")
+    return out.movedim(0, dim)
+
+
 def all_to_all_rows(x: torch.Tensor, group) -> torch.Tensor:
     """Row block j of ``x`` (dim 0 in equal blocks) to group rank j;
     returns the received blocks in source order."""
@@ -273,9 +295,18 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        full = all_reduce_(g.contiguous().clone(), ctx.group)
-        r = rank(ctx.group)
-        return full.narrow(ctx.dim, r * ctx.n, ctx.n).contiguous(), None, None
+        return scatter_dim(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return scatter_dim(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_dim(g, ctx.group, ctx.dim), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -298,6 +329,12 @@ def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Concatenation along ``dim`` over ``group`` (autograd: the
     backward reduce-scatters)."""
     return x if group is None else _AllGather.apply(x, group, dim)
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over ``group``
+    (autograd: the backward all-gathers)."""
+    return x if group is None else _ReduceScatter.apply(x, group, dim)
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

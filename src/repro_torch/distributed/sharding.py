@@ -1,6 +1,6 @@
 """Logical-axis sharding rules with divisibility-aware fallback
-(``src/repro/distributed/sharding.py``), and the per-rank shards they
-give.
+(``src/repro/distributed/sharding.py``), the per-rank shards they give,
+and the ``model`` axis's split of the dense layers' compute.
 
 Every tensor dimension is named by a *logical axis* ("batch", "ffn",
 "q_heads", ...). A rules table maps each logical axis to a priority list
@@ -15,16 +15,27 @@ turns a spec into DTensor ``Shard``/``Replicate`` placements over a
 
 Parameters at rest are each rank's shard of the logical array
 (:func:`local_shard`): a dim whose entry names axes is split in equal
-blocks over those ranks, row-major. Dense layers gather their params per
-layer (the reference's "embed: FSDP dim (gathered per layer)"):
-:func:`gather` all-gathers a shard to the logical array in forward and
-reduce-scatters in backward (``collectives.all_gather``); the model's
-layer walk applies it to each layer's leaves when :func:`active` holds a
-mesh of more than one rank (:func:`use`). :func:`reshard` gathers some
-axes and slices others, for a layer that keeps part of its sharding (the
-MoE's experts). :func:`constrain` is a no-op hook: dense-layer compute
-is not split over ``model`` here (XLA's partitioner does that in the
-reference), so its hints have nothing to steer.
+blocks over those ranks, row-major. :func:`gather` all-gathers a shard
+to the logical array in forward and reduce-scatters in backward
+(``collectives.all_gather``); :func:`reshard` gathers some axes and
+slices others.
+
+While :func:`use` holds a mesh of more than one rank, the model's layer
+walk gathers each layer's leaves over their FSDP axes only (``data``,
+``pod``: the reference's "embed: FSDP dim (gathered per layer)") and
+keeps each dim that the rules put on ``model`` as the rank's block
+(:func:`model_part`). The reference lets XLA's partitioner split the
+dense layers' compute over ``model`` from those layouts and its
+``with_sharding_constraint`` hints; here :class:`ModelSplit` does it
+with explicit collectives at the same places: each block's mixer and
+MLP run on the rank's heads, FFN columns and SSM heads, entered and
+left through :meth:`ModelSplit.enter` and :meth:`ModelSplit.exit`
+(with ``cfg.sp`` and a sequence that divides ``model``, the residual
+between blocks is the rank's block of the sequence, Megatron-SP: an
+all-gather at entry and a reduce-scatter at exit; otherwise the
+residual is whole on every model peer and the exit all-reduces). A dim
+the rules leave whole (heads that do not divide ``model``) is computed
+whole on every model peer.
 """
 from __future__ import annotations
 
@@ -222,12 +233,61 @@ def replica_axes(spec, mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a not in used)
 
 
-def constrain(x: torch.Tensor,
-              logical_dims: Sequence[Optional[str]]) -> torch.Tensor:
-    """The reference's ``with_sharding_constraint`` hook, at its call
-    sites in the model: dense compute is not split over the mesh here,
-    so it leaves ``x`` as it is."""
-    return x
+def model_part(spec) -> tuple:
+    """``spec`` with only its ``model`` axes: the shard a layer's leaf
+    keeps once its FSDP axes are gathered."""
+    out = []
+    for entry in spec:
+        axes = spec_axes(entry)
+        if "model" in axes and len(axes) > 1:
+            raise ValueError(f"entry {entry} splits a dim over model and "
+                             f"other axes")
+        out.append("model" if "model" in axes else None)
+    return tuple(out)
+
+
+class ModelSplit:
+    """The ``model`` axis of the active mesh for one pass of the model
+    over a sequence of ``seq`` positions: its group, size and this
+    rank's index along it, and whether the residual stream between
+    blocks is this rank's block of the sequence (``sp``: Megatron-SP,
+    when asked for and ``seq`` divides the axis).
+
+    Between :meth:`enter` and :meth:`exit` a region (attention, SSM,
+    MLP, MoE, the embedding's lookup) runs on the rank's share of its
+    heads or columns, so its output is either a *partial* sum over the
+    model peers (its last product contracted a split dim) or *whole*
+    (nothing of it was split). Every collective's backward is its
+    adjoint (``collectives``), so remat's recompute and the backward
+    issue the same collectives on every rank."""
+
+    def __init__(self, mesh, seq: int, sp: bool):
+        self.group = mesh.group("model")
+        self.size = mesh.axis_size("model")
+        self.index = mesh.axis_index("model")
+        self.sp = bool(sp) and seq % self.size == 0
+
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        """The region's input: under SP the sequence (dim 1) gathered
+        from the model peers' blocks, else ``h`` as it is."""
+        return C.all_gather(h, self.group, 1) if self.sp else h
+
+    def rows(self, y: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the sequence (dim 1) under SP."""
+        if not self.sp:
+            return y
+        n = y.shape[1] // self.size
+        return y.narrow(1, self.index * n, n)
+
+    def exit(self, y: torch.Tensor, partial: bool) -> torch.Tensor:
+        """The region's output into the residual stream: a partial sum
+        reduce-scattered over the sequence under SP, all-reduced
+        otherwise; a whole output sliced to the rank's rows."""
+        if not partial:
+            return self.rows(y)
+        if self.sp:
+            return C.reduce_scatter(y, self.group, 1)
+        return C.all_reduce(y, self.group)
 
 
 # ---------------------------------------------------------------------------
@@ -258,10 +318,32 @@ def active() -> Optional[tuple]:
     return _ACTIVE
 
 
-def gather_tree(tree: dict, specs: dict, mesh, skip=()) -> dict:
-    """Every leaf of ``tree`` gathered by its spec, except the subtrees
-    named in ``skip`` (kept as shards)."""
-    return {k: (v if k in skip else
-                gather_tree(v, specs[k], mesh) if isinstance(v, dict)
+def model_split(seq: int, sp: bool) -> Optional[ModelSplit]:
+    """The active mesh's :class:`ModelSplit` for a pass over ``seq``
+    positions, or None when no mesh is active or its ``model`` axis is
+    one rank."""
+    if _ACTIVE is None:
+        return None
+    mesh = _ACTIVE[0]
+    if "model" not in mesh.axis_names or mesh.shape["model"] == 1:
+        return None
+    return ModelSplit(mesh, seq, sp)
+
+
+def gather_tree(tree: dict, specs: dict, mesh) -> dict:
+    """Every leaf of ``tree`` gathered by its spec."""
+    return {k: (gather_tree(v, specs[k], mesh) if isinstance(v, dict)
                 else gather(v, specs[k], mesh))
+            for k, v in tree.items()}
+
+
+def reshard_tree(tree: dict, specs: dict, targets: dict, mesh,
+                 skip=()) -> dict:
+    """Every leaf of ``tree`` resharded from its spec in ``specs`` to its
+    target in ``targets`` (:func:`reshard`), except the subtrees named
+    in ``skip`` (kept as they are)."""
+    return {k: (v if k in skip else
+                reshard_tree(v, specs[k], targets[k], mesh)
+                if isinstance(v, dict)
+                else reshard(v, specs[k], targets[k], mesh))
             for k, v in tree.items()}

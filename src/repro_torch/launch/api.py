@@ -17,12 +17,22 @@ applied by the config's optimizer.
 
 On a mesh (``make_train_step(cfg, mesh=, specs=)``) the state is each
 rank's shards and the batch its rows. The loss's gradient flows back
-through the per-layer gathers (their backward reduce-scatters) and the
-MoE's collectives; each shard's gradient is then summed over the ranks
-that hold the same shard and divided by the world's size — the gradient
-of the mean of the ranks' losses, which is the loss of the global batch
-(ranks that differ only in ``model`` hold the same rows and count once
-each in both). The global norm sums every shard once. Both optimizers
+through the per-layer gathers over the FSDP axes (their backward
+reduce-scatters), the split layers' entries and exits over ``model``
+and the MoE's collectives, every backward the adjoint of its forward,
+so autograd on each rank gives that rank's part of the gradient of the
+world's sum of losses, Σ_ranks loss_r. Every model peer computes the
+loss of its rows whole (its vocabulary block's share is reduced over
+``model``), so the world's sum is M × Σ_(pod, data) loss_rows with M
+the ``model`` axis's size. A leaf split over ``model`` is on one model
+peer only, but all M peers' losses reach it through the exits, so its
+gradient carries the factor M too; a whole leaf's parts on the M peers
+(their sequence blocks under SP, their heads' share, or the whole
+computation repeated) sum to M times its gradient. Either way, each
+shard's gradient summed over the ranks that hold the same shard and
+divided by the world's size (M × pod × data) is the gradient of the
+global batch's loss, the mean of the (pod, data) ranks' losses. The
+global norm sums every shard once. Both optimizers
 update the shards alone: AdamW is elementwise, and Adafactor's factored
 row and column means and its update's RMS sum their shards' parts over
 the ranks that split the dims, so no rank holds a whole leaf.
@@ -200,7 +210,9 @@ def _rebuild(tree, it):
 
 def reduce_grads(grads: dict, specs: dict, mesh) -> dict:
     """Each shard's gradient summed (in float32) over the ranks that hold
-    the same shard, over the world's size, in its own dtype."""
+    the same shard, over the world's size, in its own dtype: the
+    gradient of the world's sum of losses counts each row's loss once a
+    model peer (module docstring), so the world's size divides."""
     def one(g, spec):
         acc = C.all_reduce_(g.float(), mesh.group(
             sharding.replica_axes(spec, mesh)))
@@ -338,13 +350,6 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
             (params_sp, cache_sp, batch_sp), (None, cache_sp), (1,))
 
 
-def _port_cache_spec(spec) -> tuple:
-    """The decode cache as the port holds it at rest: a rank's rows
-    (the batch dim's axes), whole along every other dim, since dense
-    compute is not split over ``model`` here."""
-    return tuple(e if d == 1 else None for d, e in enumerate(spec))
-
-
 def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                grad_accum: int = 0):
     """One rank's cell, ready to walk: ``(step, args, in specs, out
@@ -355,15 +360,17 @@ def lower_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
     it itself). The train state's ``step`` is a CPU tensor holding 0 and
     the decode batch's ``pos`` one holding ``seq_len − 1``: the walk
     reads both as numbers. The cache (decode's argument, the output of
-    prefill and decode) is the rank's rows, whole over ``model``
-    (:func:`_port_cache_spec`). On a ``DryMesh`` the
-    step's collectives move nothing."""
+    prefill and decode) is laid out as the port holds it
+    (``model.port_cache_specs``). On a ``DryMesh`` the step's collectives
+    move nothing."""
     fn, args, in_sp, out_sp, donate = build_cell(cfg, shape, mesh,
                                                  grad_accum=grad_accum)
-    if shape.kind == "decode":
-        in_sp = (in_sp[0], tree_map(_port_cache_spec, in_sp[1]), in_sp[2])
     if shape.kind != "train":
-        out_sp = (None, tree_map(_port_cache_spec, out_sp[1]))
+        cache_sp = M.port_cache_specs(cfg, shape.global_batch,
+                                      shape.seq_len, mesh)
+        out_sp = (None, cache_sp)
+    if shape.kind == "decode":
+        in_sp = (in_sp[0], cache_sp, in_sp[2])
 
     def local(x, spec):
         return torch.empty(sharding.local_shape(x.shape, spec, mesh),

@@ -41,9 +41,12 @@ it.
 over the ranks of ``torch.distributed`` (started from the environment
 as the train driver does; a world of one is the trivial mesh) and prints
 ``mesh <shape>`` as the reference does. Each rank draws only its shards
-of the params (``init_params(mesh=)``), which every layer gathers as the
-walk reaches it, serves its (pod, data) rows of the prompts, and the
-tokens are gathered on every rank (rank 0 prints them). ``--sched`` and
+of the params (``init_params(mesh=)``), which every layer gathers over
+its FSDP axes as the walk reaches it, keeping its ``model`` blocks: the
+dense layers' compute is split over ``model`` (each rank its heads, FFN
+columns and vocabulary block; the logits gathered before sampling). It
+serves its (pod, data) rows of the prompts, and the tokens are gathered
+on every rank (rank 0 prints them). ``--sched`` and
 ``--slo-shed`` are kept: each rank's wall clock would shed other steps
 and the ranks' collectives would no longer meet, so with more than one
 rank the admission is rank 0's (:class:`RankZeroAdmission`): its SLO

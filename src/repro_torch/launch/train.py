@@ -24,7 +24,8 @@ one rank (``torchrun``'s ``WORLD_SIZE``) and no process group is up,
 it is started: NCCL for ``--device cuda`` (one card a rank, by
 ``LOCAL_RANK``), gloo for the CPU. The state is made sharded (each rank
 draws only its shards, ``init_params(mesh=)``), batches are each rank's
-rows (``make_global_batch``), and checkpoints are gathered leaf by
+rows (``make_global_batch``), the dense layers' compute is split over
+``model`` (``sharding.ModelSplit``), and checkpoints are gathered leaf by
 leaf to their logical arrays, which rank 0 alone copies to the host and
 writes. On a mesh a SIGTERM is noted by the rank that receives it, and
 every rank saves together at the end of the step (the ranks agree on it

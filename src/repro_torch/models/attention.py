@@ -10,13 +10,21 @@ impl='kernel'   — the c6_flashattn instruction (K8 on CUDA tensors) in
 
 Decode: one new token against the KV cache (B, T, KV, hd); it launches
 no kernel, in the reference either.
+
+Under a split over ``model`` (``sharding.ModelSplit``) ``wq``/``wk``/
+``wv`` hold the rank's heads (column-parallel) and ``wo`` its rows
+(row-parallel), so the output is a partial sum over the model peers;
+RoPE and ``q_norm``/``k_norm`` act on the local heads. When the query
+heads split and the KV heads do not (fewer KV heads than ranks), the
+rank's KV are whole and it reads the ones its query heads use
+(:func:`_kv_for_q`). Both ``chunked`` and ``kernel`` run on the local
+heads; the cache holds the rank's KV heads.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops as kops
 
 from .layers import apply_rope, rmsnorm
@@ -36,6 +44,26 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _kv_for_q(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, h: int,
+              tp) -> tuple[torch.Tensor, torch.Tensor]:
+    """The KV heads (dim 2) that this rank's ``h`` query heads read. Only
+    when the query heads are split and the KV heads whole does it select
+    them: the heads of the rank's contiguous query block, as a narrow
+    when each query group or each KV head falls in the block whole, else
+    one KV head a query head."""
+    if h == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    lo = tp.index * h
+    if h % g == 0:
+        return k.narrow(2, lo // g, h // g), v.narrow(2, lo // g, h // g)
+    if g % h == 0:
+        return k.narrow(2, lo // g, 1), v.narrow(2, lo // g, 1)
+    idx = torch.div(torch.arange(lo, lo + h, device=k.device), g,
+                    rounding_mode="floor")
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def _mask(q_pos, k_pos, window: int):
@@ -64,10 +92,8 @@ def _chunked_attn(cfg: ModelConfig, q, k, v, q_pos, k_pos):
     """Online-softmax over q chunks: O(chunk·T) live logits."""
     b, s, h, hd = q.shape
     if cfg.attn_flat_heads:
-        k = constrain(k.repeat_interleave(h // k.shape[2], dim=2),
-                      ("batch", None, "q_heads", "head_dim"))
-        v = constrain(v.repeat_interleave(h // v.shape[2], dim=2),
-                      ("batch", None, "q_heads", "head_dim"))
+        k = k.repeat_interleave(h // k.shape[2], dim=2)
+        v = v.repeat_interleave(h // v.shape[2], dim=2)
     kvh = k.shape[2]
     g = h // kvh
     c = min(cfg.attn_chunk, s)
@@ -91,21 +117,25 @@ def _chunked_attn(cfg: ModelConfig, q, k, v, q_pos, k_pos):
 
 
 def attention(cfg: ModelConfig, p: dict, x: torch.Tensor,
-              positions: torch.Tensor, return_cache: bool = False):
-    """Training / prefill self-attention. Returns (B, S, D)
-    (+ the rolled (k, v) decode cache when return_cache)."""
+              positions: torch.Tensor, return_cache: bool = False,
+              tp=None):
+    """Training / prefill self-attention. Returns (B, S, D), a partial
+    sum over the model peers when the heads are split (``tp``: the
+    pass's ``ModelSplit``), (+ the rolled (k, v) decode cache of the
+    rank's KV heads when return_cache)."""
     q, k, v = _project_qkv(cfg, p, x, positions)
+    ks, vs = _kv_for_q(cfg, k, v, q.shape[2], tp)
     if cfg.attn_impl == "kernel" and not cfg.swa_window:
-        kvh, h = k.shape[2], q.shape[2]
-        kk = k.repeat_interleave(h // kvh, dim=2)
-        vv = v.repeat_interleave(h // kvh, dim=2)
+        kvh, h = ks.shape[2], q.shape[2]
+        kk = ks.repeat_interleave(h // kvh, dim=2)
+        vv = vs.repeat_interleave(h // kvh, dim=2)
         o = kops.flash_attention(
             q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
             causal=True).transpose(1, 2)
     elif cfg.attn_impl == "chunked" or cfg.attn_impl == "kernel":
-        o = _chunked_attn(cfg, q, k, v, positions, positions)
+        o = _chunked_attn(cfg, q, ks, vs, positions, positions)
     else:
-        o = _full_attn(cfg, q, k, v, positions, positions)
+        o = _full_attn(cfg, q, ks, vs, positions, positions)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     if return_cache:
         t = cache_len(cfg, q.shape[1])
@@ -123,7 +153,8 @@ def cache_len(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int):
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                     tp=None):
     """x: (B, 1, D); caches (B, T, KV, hd); pos: the current position.
 
     Returns (out (B,1,D), k_cache, v_cache). The new token's k and v are
@@ -138,17 +169,18 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k_cache[:, slot] = k[:, 0]
     v_cache[:, slot] = v[:, 0]
 
-    h, kvh, hd = q.shape[2], k.shape[2], q.shape[3]
+    kc, vc = _kv_for_q(cfg, k_cache, v_cache, q.shape[2], tp)
+    h, kvh, hd = q.shape[2], kc.shape[2], q.shape[3]
     g = h // kvh
     qg = q.reshape(b, kvh, g, hd)
-    logits = torch.einsum("bkgd,btkd->bkgt", qg, k_cache).float()
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, kc).float()
     logits = logits * hd ** -0.5
 
     slot_idx = torch.arange(t, device=x.device)[None, :]    # (1, T)
     valid = slot_idx <= (min(pos, t - 1) if cfg.swa_window else pos)
     logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     w = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", w.to(x.dtype), v_cache)
+    o = torch.einsum("bkgt,btkd->bkgd", w.to(x.dtype), vc)
     o = o.reshape(b, 1, h, hd)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return out, k_cache, v_cache

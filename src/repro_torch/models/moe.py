@@ -18,7 +18,12 @@ Three dispatch implementations:
             all-reduced over ``model``.
 Both sharded ones are :func:`_dispatch_combine` on each rank's tokens
 (:func:`_moe_sharded`, the reference's ``shard_map`` body as per-rank
-code with explicit collectives). On one rank (no mesh) the port runs
+code with explicit collectives). In the model's block (a
+``sharding.ModelSplit`` given) the layer receives the tokens the block
+entered with (under SP the gathered sequence) and leaves through the
+block's exit, as the MLP does: the partial sums over ``model`` are
+reduce-scattered over the sequence there (all-reduced without SP)
+instead of all-reduced here. On one rank (no mesh) the port runs
 :func:`_dispatch_combine` with no EP or TP group, as before (the
 reference goes dense there): its all_to_all and all-reduce are
 identities, and K7 and K3 stay on the one-device path.
@@ -110,7 +115,7 @@ def _moe_dense(cfg: ModelConfig, p: dict, x: torch.Tensor):
 
 def _dispatch_combine(cfg: ModelConfig, toks: torch.Tensor, p: dict,
                       ep_group=None, tp_group=None, n_ep: int = 1,
-                      batch_group=None):
+                      batch_group=None, reduce: bool = True):
     """Shared EP/TP dispatch for one token block. toks: (t, D) local.
 
     The scatter is ``index_add_``: every valid (expert, slot) row receives
@@ -119,7 +124,8 @@ def _dispatch_combine(cfg: ModelConfig, toks: torch.Tensor, p: dict,
     the (E·cap, D) buffer goes to the experts' owners in one all_to_all
     (row block j, experts [j·E/n_ep, (j+1)·E/n_ep), to data rank j) and
     comes back in another; under TP the expert FFN gives partial sums
-    over ``model``, all-reduced on the combined (t, D)."""
+    over ``model``, all-reduced on the combined (t, D) (left partial when
+    not ``reduce``)."""
     t, d = toks.shape
     logits = (toks @ p["router"]).float()
     gates, ids, aux = _route(cfg, logits, batch_group)
@@ -151,7 +157,7 @@ def _dispatch_combine(cfg: ModelConfig, toks: torch.Tensor, p: dict,
     padded = torch.cat([ret, ret.new_zeros((1, d))], dim=0)
     gathered = padded[dst].reshape(t, cfg.top_k, d)
     comb = torch.sum(gathered.float() * gates[..., None], dim=1)  # (t, D)
-    if tp_group is not None:  # finish TP partial sums on the small tensor
+    if tp_group is not None and reduce:  # finish TP partial sums
         comb = C.all_reduce(comb, tp_group)
     return comb.to(toks.dtype), aux
 
@@ -168,14 +174,15 @@ def _blocks(cfg: ModelConfig, toks: torch.Tensor, fn):
 
 
 def _moe_sharded(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh,
-                 use_ep: bool, specs: dict):
+                 use_ep: bool, specs: dict, reduce: bool = True):
     """The reference's ``shard_map`` body on this rank: ``x`` its rows
     (B_loc, S, D), ``p`` its shards of the layer's MoE leaves as
     ``specs`` (one layer's) place them. The router is gathered; each
     expert weight is resharded to experts over ``data`` under EP (whole
     under TP) and its FFN dim over ``model``. The aux loss averages its
     token statistics over the batch's ranks, where the reference keeps
-    one rank's."""
+    one rank's. Without ``reduce`` the output is left a partial sum over
+    ``model``."""
     ep = "data" if use_ep else None
     tp = "model" if "model" in mesh.axis_names else None
     n_ep = mesh.shape["data"] if use_ep else 1
@@ -190,14 +197,17 @@ def _moe_sharded(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh,
                             if a in mesh.axis_names))
     b_l, s, d = x.shape
     out, aux = _blocks(cfg, x.reshape(-1, d), lambda blk: _dispatch_combine(
-        cfg, blk, p, ep_group, tp_group, n_ep, rows))
+        cfg, blk, p, ep_group, tp_group, n_ep, rows, reduce))
     return out.reshape(b_l, s, d), aux
 
 
-def moe_layer(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def moe_layer(cfg: ModelConfig, p: dict, x: torch.Tensor, tp=None):
     """x: (B, S, D) → (out (B,S,D), aux load-balance loss). On an active
     mesh (``sharding.use``): ``p`` holds this rank's shards, EP when the
-    experts divide over ``data``, else TP."""
+    experts divide over ``data``, else TP. With ``tp`` (the block's
+    ``sharding.ModelSplit``) the output leaves through ``tp.exit``: the
+    model peers' partial sums reduced there, a whole output sliced to
+    the rank's rows."""
     act = sharding.active()
     if act is not None:
         mesh, specs = act
@@ -205,11 +215,14 @@ def moe_layer(cfg: ModelConfig, p: dict, x: torch.Tensor):
     if cfg.moe_impl == "dense":
         if act is not None:
             p = sharding.gather_tree(p, mspecs, mesh)
-        return _moe_dense(cfg, p, x)
+        out, aux = _moe_dense(cfg, p, x)
+        return (out if tp is None else tp.exit(out, False)), aux
     if act is not None:
         use_ep = (cfg.moe_impl == "ep" and "data" in mesh.axis_names
                   and cfg.n_experts % mesh.shape["data"] == 0)
-        return _moe_sharded(cfg, p, x, mesh, use_ep, mspecs)
+        out, aux = _moe_sharded(cfg, p, x, mesh, use_ep, mspecs,
+                                reduce=tp is None)
+        return (out if tp is None else tp.exit(out, True)), aux
     b, s, d = x.shape
     out, aux = _blocks(cfg, x.reshape(-1, d),
                        lambda blk: _dispatch_combine(cfg, blk, p))

@@ -10,9 +10,14 @@ oracle on CPU tensors, and K4's plain walk under ``interpret``.
 
 Decode is O(1): a (B, H, P, N) state update per token.
 
-The reference's sharding constraints are kept as ``constrain`` hooks,
-which leave the tensors as they are (dense compute is not split over a
-mesh here). Its ``preferred_element_type=float32`` products on bf16
+Under a split over ``model`` (``sharding.ModelSplit``) the rank holds
+its SSM heads: ``w_z``, ``w_x``, ``w_dt``, ``conv_x``, ``A_log``, ``D``,
+``dt_bias``, ``norm`` and ``out_proj`` follow ``ssm_inner`` /
+``ssm_heads``, and K4 scans the rank's heads; ``w_B``, ``w_C``,
+``conv_B`` and ``conv_C`` are whole and run on every model peer. The
+gated RMSNorm over ``d_inner`` sums its squares over the model peers
+(:func:`_gated_norm`), and ``out_proj`` is row-parallel, so the output
+is a partial sum over them. The reference's ``preferred_element_type=float32`` products on bf16
 operands (``ssd_bf16``) become float32 products of the operands cast to
 float32, which is exact. For serving, the (B, C, Q, Q, H) intra-chunk
 tensors are built in place, one at a time: at Mamba2-1.3B's widths and
@@ -25,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops as kops
 
 from .layers import rmsnorm
@@ -64,12 +69,28 @@ def _proj(cfg: ModelConfig, p: dict, u: torch.Tensor):
     return z, x, bc, cc, dt
 
 
+def _gated_norm(cfg: ModelConfig, p: dict, y: torch.Tensor,
+                z: torch.Tensor, tp, eps: float = 1e-6) -> torch.Tensor:
+    """rmsnorm(y · silu(z)) over ``d_inner``; with the rank holding a
+    block of ``d_inner``, the sum of squares is all-reduced over the
+    model peers (its backward sums their cotangents)."""
+    g = y * F.silu(z.float()).to(y.dtype)
+    if g.shape[-1] == cfg.d_inner:
+        return rmsnorm(g, p["norm"], eps)
+    xf = g.float()
+    ss = C.all_reduce(torch.sum(xf * xf, dim=-1, keepdim=True), tp.group)
+    out = xf * torch.rsqrt(ss / cfg.d_inner + eps)
+    return (out * p["norm"].float()).to(g.dtype)
+
+
 def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
-                return_state: bool = False):
-    """Training / prefill SSD pass. u: (B, S, D) → (B, S, D)
-    (+ (final_state, conv_cache) when return_state, for decode)."""
+                return_state: bool = False, tp=None):
+    """Training / prefill SSD pass. u: (B, S, D) → (B, S, D), a partial
+    sum over the model peers when the heads are split (``tp``: the
+    pass's ``ModelSplit``) (+ (final_state, conv_cache) of the rank's
+    heads when return_state, for decode)."""
     b, s_in, _ = u.shape
-    h, pd, n = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    h, pd, n = p["A_log"].shape[0], cfg.ssm_headdim, cfg.ssm_state
     q = min(cfg.ssm_chunk, s_in)
     pad = (-s_in) % q
     if pad:
@@ -80,9 +101,6 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     nc = s // q
 
     z, x, bc, cc, dt = _proj(cfg, p, u)
-    z = constrain(z, ("batch", None, "ssm_inner"))
-    x = constrain(x, ("batch", None, "ssm_inner"))
-    dt = constrain(dt, ("batch", None, "ssm_heads"))
     w = cfg.conv_width - 1
     # copies: a slice would keep the whole (B, S, ·) projection alive
     conv_cache = {"x": x[:, -w:].clone(), "B": bc[:, -w:].clone(),
@@ -126,7 +144,6 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
         w_intra = decay * g[..., None] * dtc[:, :, None]
     else:
         w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
-    w_intra = constrain(w_intra, ("batch", None, None, None, "ssm_heads"))
     del decay, g
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(), xc.float())
     del w_intra
@@ -157,7 +174,7 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     del y_intra, y_inter
     y = y + xh.float() * p["D"].float()[:, None]
     y = y.reshape(b, s, h * pd).to(u.dtype)
-    y = rmsnorm(y * F.silu(z.float()).to(u.dtype), p["norm"])
+    y = _gated_norm(cfg, p, y, z, tp)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])[:, :s_in]
     if return_state:
         return out, (run[:, -1].clone(), conv_cache)   # state after last chunk
@@ -165,12 +182,13 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
 
 
 def ssd_decode(cfg: ModelConfig, p: dict, u: torch.Tensor,
-               conv_cache: dict, ssm_state: torch.Tensor):
-    """One-token step. u: (B,1,D); ssm_state: (B,H,P,N).
+               conv_cache: dict, ssm_state: torch.Tensor, tp=None):
+    """One-token step. u: (B,1,D); ssm_state: (B,H,P,N) (the rank's
+    heads under a split, ``tp``).
 
     Returns (out (B,1,D), new_conv_cache, new_ssm_state)."""
     b = u.shape[0]
-    h, pd = cfg.ssm_heads, cfg.ssm_headdim
+    h, pd = p["A_log"].shape[0], cfg.ssm_headdim
 
     z, x, bc, cc, dt = _proj(cfg, p, u)
     x, cx = _causal_conv(x, p["conv_x"], conv_cache["x"])
@@ -186,6 +204,6 @@ def ssd_decode(cfg: ModelConfig, p: dict, u: torch.Tensor,
     y = torch.einsum("bn,bhpn->bhp", cc_[:, 0].float(), new_state)
     y = y + xh * p["D"].float()[:, None]
     y = y.reshape(b, 1, h * pd).to(u.dtype)
-    y = rmsnorm(y * F.silu(z.float()).to(u.dtype), p["norm"])
+    y = _gated_norm(cfg, p, y, z, tp)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     return out, {"x": cx, "B": cb, "C": ccv}, new_state

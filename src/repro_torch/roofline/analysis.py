@@ -20,9 +20,7 @@ eager ops and its transport would do:
   (``distributed.collectives.recording``): every collective it issues,
   by kind, with the reference's ring-volume factor for its kind and
   group size (:func:`collective_bytes_of`), in the layout of the
-  reference's :func:`collective_bytes`. gloo has no reduce-scatter, so
-  the port's (an all-gather's backward) is an all-reduce and a slice and
-  counts as an all-reduce.
+  reference's :func:`collective_bytes`.
 * **Memory**: argument and output bytes from the shards' shapes;
   ``temp`` the peak of the storages the walk allocated that were alive
   at once (outputs included), so the predicted peak is argument +

@@ -185,11 +185,6 @@ def test_placements_name_the_sharded_dims():
     assert sharding.placements((), m) == [Replicate()] * 3
 
 
-def test_constrain_is_a_no_op_hook():
-    x = torch.randn(2, 3)
-    assert sharding.constrain(x, ("batch", None)) is x
-
-
 # ---------------------------------------------------------------------------
 # quantisation and error feedback
 # ---------------------------------------------------------------------------

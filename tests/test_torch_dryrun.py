@@ -6,7 +6,9 @@
 * a dry run of one rank equals the same reduced cell run for real on 2
   gloo ranks on the CPU: its collective bytes by kind, as the transport
   recorded them, and its FLOPs (FlopCounterMode over the real step on
-  each rank), exactly;
+  each rank), exactly — on a (2, 1) mesh (FSDP) and on a (1, 2) mesh
+  (the dense layers split over ``model``, SP's all-gathers and
+  reduce-scatters);
 * the reference's cost(L) = outside + L·body fit from the L = 2 and
   L = 4 probes equals the direct count exactly (the port's walk counts
   every layer);
@@ -66,6 +68,20 @@ def test_dry_run_equals_a_real_two_rank_run():
         dry = count_step(fn, args)
         coll = collective_bytes_of(dry["collectives"])
         assert coll["total"] > 0
+        for r in real:
+            assert r[name]["shapes_ok"], name
+            assert r[name]["coll"] == coll, name
+            assert r[name]["flops"] == dry["flops"], name
+
+
+def test_dry_run_of_a_model_split_equals_a_real_two_rank_run():
+    real = T.spawn(T.real_cell_ranks, 2, CELLS, (1, 2))
+    mesh = DryMesh((1, 2), ("data", "model"))
+    for name, cfg, shape in CELLS:
+        fn, args, _, _, _ = api.lower_cell(cfg, shape, mesh)
+        dry = count_step(fn, args)
+        coll = collective_bytes_of(dry["collectives"])
+        assert coll["counts"]["reduce-scatter"] > 0, name
         for r in real:
             assert r[name]["shapes_ok"], name
             assert r[name]["coll"] == coll, name

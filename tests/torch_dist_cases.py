@@ -431,12 +431,13 @@ def failing_rank(rank: int) -> None:
 
 
 # ---------------------------------------------------------------------------
-# the dry run against a real run (2 ranks, (data 2, model 1))
+# the dry run against a real run (2 ranks, (data 2, model 1) or (1, 2))
 # ---------------------------------------------------------------------------
 
-def real_cell_ranks(rank: int, cases: list) -> dict:
+def real_cell_ranks(rank: int, cases: list, mesh_shape=(2, 1)) -> dict:
     """Each (name, cfg, shape) train cell run for real as this rank of a
-    (2, 1) mesh, on its shards from ``init_params(mesh=)`` and its rows,
+    ``mesh_shape`` (data, model) mesh, on its shards from
+    ``init_params(mesh=)`` and its rows,
     under ``roofline.analysis.count_step``: its FLOPs and its transport's
     collective traffic by kind, and whether every argument has the shape
     of ``api.lower_cell``'s meta argument."""
@@ -445,7 +446,7 @@ def real_cell_ranks(rank: int, cases: list) -> dict:
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.params import init_params, tree_items
     from repro_torch.roofline.analysis import collective_bytes_of, count_step
-    mesh = Mesh((2, 1), ("data", "model"))
+    mesh = Mesh(mesh_shape, ("data", "model"))
     out = {}
     for name, cfg, shape in cases:
         fn, meta, in_sp, _, _ = api.lower_cell(cfg, shape, mesh)
@@ -466,4 +467,167 @@ def real_cell_ranks(rank: int, cases: list) -> dict:
         c = count_step(fn, (state, batch))
         out[name] = {"flops": c["flops"], "shapes_ok": shapes_ok,
                      "coll": collective_bytes_of(c["collectives"])}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the dense layers split over ``model`` (tensor and sequence parallelism)
+# ---------------------------------------------------------------------------
+
+#: the functions whose params a rank's layer walk hands over: the
+#: model's module attribute, the function, the argument holding the
+#: params, and the param whose shape says which block it is (None: the
+#: argument is the param)
+TP_SEEN = (("attn", "attention", 1, "wq"),
+           ("ssm_mod", "ssd_forward", 1, "A_log"),
+           ("", "mlp", 0, "w_in"), ("", "vocab_logits", 0, None))
+
+
+def _seen_shapes(log: dict):
+    """Patches the model's calls of TP_SEEN to log the shape of the param
+    they see (the unembedding's for ``vocab_logits``); returns the undo."""
+    from repro_torch.models import model as M
+    undo = []
+    for mod, name, arg, leaf in TP_SEEN:
+        owner = getattr(M, mod) if mod else M
+        orig = getattr(owner, name)
+
+        def seen(*a, _orig=orig, _name=name, _arg=arg, _leaf=leaf, **kw):
+            shape = (tuple(a[_arg].shape) if _leaf is None
+                     else tuple(a[_arg][_leaf].shape))
+            log.setdefault(_name, set()).add(shape)
+            return _orig(*a, **kw)
+        setattr(owner, name, seen)
+        undo.append((owner, name, orig))
+
+    def restore():
+        for owner, name, orig in undo:
+            setattr(owner, name, orig)
+    return restore
+
+
+def tp_ranks(rank: int, shape, cases: list, extras: bool) -> dict:
+    """Each (name, cfg, numpy params, numpy batch) case on this rank of a
+    (data, model) mesh of ``shape``: its shards from the numpy params and
+    its rows of the batch. Returns per case the loss, every gradient leaf
+    (reduced, then gathered to the logical array), prefill's logits and
+    two decode steps' (after ``grow_cache``, fed the targets' first two
+    tokens) of the rank's rows, the
+    param shapes the attention, SSM, MLP and unembedding saw, the
+    collectives of the train step by kind, and the K4 calls' head
+    counts. With ``extras``, the unit cases of the split's pieces."""
+    from repro_torch.core import isa
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch import api
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import model as M
+    from repro_torch.models.params import shard_from_numpy
+    mesh = Mesh(shape, ("data", "model"))
+    out = {"coords": dict(mesh.coords)}
+    for name, cfg, params, batch in cases:
+        specs = api.state_specs(cfg, mesh)["params"]
+        p = shard_from_numpy(params, specs, mesh, "cpu")
+        rows = {k: sharding.local_shard(torch.from_numpy(v), ("data", None),
+                                        mesh).contiguous()
+                for k, v in batch.items()}
+        seen: dict = {}
+        restore = _seen_shapes(seen)
+        k4_heads = []
+        scan = ops.chunk_scan_state
+
+        def counted(a, states, axis, _scan=scan):
+            k4_heads.append(states.shape[2])
+            return _scan(a, states, axis)
+        ops.chunk_scan_state = counted
+        try:
+            with C.recording() as log:
+                with sharding.use(mesh, specs):
+                    grads, metrics = api.make_grad_fn(cfg)(p, rows)
+            grads = api.reduce_grads(grads, specs, mesh)
+            res = {"loss": float(metrics["loss"]),
+                   "coll": sorted({k for k, _, _ in log})}
+            with torch.no_grad():
+                res["grads"] = {path: sharding.gather(g, sp, mesh).numpy()
+                                for (path, g), (_, sp) in zip(
+                                    _items(grads), _items(specs))}
+                with sharding.use(mesh, specs):
+                    prompt = rows["tokens"]
+                    logits, cache = M.prefill(cfg, p, {"tokens": prompt})
+                    res["prefill"] = logits.numpy()
+                    res["cache_shapes"] = {k: tuple(v.shape) for k, v in
+                                           _items(cache)}
+                    cache = M.grow_cache(cfg, cache, prompt.shape[1],
+                                         prompt.shape[1] + 2)
+                    dec = []
+                    for i in range(2):      # the targets' tokens, forced
+                        logits, cache = M.decode_step(
+                            cfg, p, cache, rows["targets"][:, i:i + 1],
+                            prompt.shape[1] + i)
+                        dec.append(logits.numpy())
+                    res["decode"] = dec
+                    if cfg.has_ssm and extras:
+                        with isa.use("interpret"):
+                            res["prefill_interpret"] = M.prefill(
+                                cfg, p, {"tokens": prompt})[0].numpy()
+        finally:
+            restore()
+            ops.chunk_scan_state = scan
+        res["seen"] = seen
+        res["k4_heads"] = sorted(set(k4_heads))
+        out[name] = res
+    if extras:
+        out["units"] = tp_units(mesh)
+    return out
+
+
+def tp_units(mesh) -> dict:
+    """The split's pieces on this rank against their whole versions (the
+    rank holds the whole inputs, made from one seed): the SSM's gated
+    norm over a ``d_inner`` split and the vocabulary-split cross-entropy
+    (padded vocabulary, values and gradients)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding
+    from repro_torch.models import layers, ssm
+    cfg = get_config("mamba2_1p3b").reduced()
+    g = torch.Generator().manual_seed(7)
+    m, i = mesh.axis_size("model"), mesh.axis_index("model")
+    tp = sharding.ModelSplit(mesh, 8, True)
+    out = {}
+    y = torch.randn(2, 8, cfg.d_inner, generator=g)
+    z = torch.randn(2, 8, cfg.d_inner, generator=g)
+    w = torch.randn(cfg.d_inner, generator=g)
+    n = cfg.d_inner // m
+    blk = slice(i * n, (i + 1) * n)
+    whole = ssm._gated_norm(cfg, {"norm": w}, y, z, None)
+    yl = y[..., blk].clone().requires_grad_()
+    got = ssm._gated_norm(cfg, {"norm": w[blk]}, yl, z[..., blk], tp)
+    # each rank's loss is its block's: the world's sum is the whole loss
+    (dy,) = torch.autograd.grad(got.square().sum(), yl)
+    yw = y.clone().requires_grad_()
+    (dyw,) = torch.autograd.grad(ssm._gated_norm(
+        cfg, {"norm": w}, yw, z, None).square().sum(), yw)
+    out["gated_norm"] = (float((got - whole[..., blk]).abs().max()),
+                         float((dy - dyw[..., blk]).abs().max()),
+                         float(whole.abs().max()), float(dyw.abs().max()))
+    vocab, padded = 500, 512
+    x = torch.randn(2, 6, 16, generator=g)
+    wu = torch.randn(16, padded, generator=g)
+    t = torch.randint(0, vocab, (2, 6), generator=g)
+    nv = padded // m
+    xw = x.clone().requires_grad_()
+    lw, _ = layers.cross_entropy(layers.unembed(wu, xw, vocab), t)
+    (dxw,) = torch.autograd.grad(lw, xw)
+    xl = x.clone().requires_grad_()
+    ll, _ = layers.cross_entropy_split(
+        layers.vocab_logits(wu[:, i * nv:(i + 1) * nv], xl, vocab, i * nv),
+        t, i * nv, mesh.group("model"))
+    (dxl,) = torch.autograd.grad(ll, xl)
+    # every model peer's loss is the whole one: the world's sum counts it
+    # m times, and a rank's gradient of its copy of x is its block's part
+    dx = C.all_reduce_(dxl.clone(), mesh.group("model")) / m
+    out["ce"] = (float(ll), float(lw), float((dx - dxw).abs().max()),
+                 float(dxw.abs().max()))
     return out
