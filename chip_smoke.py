@@ -203,6 +203,23 @@ Phases (inputs from numpy with a fixed seed):
      train, 4 × 4096, a mesh of one — printed as its JSON report, and
      one real step of the same cell on the card under FlopCounterMode;
      then two plain steps timed. Prints a ``dryrun`` JSON line
+  P  the four user-facing examples (examples/*.py) through their twins in
+     repro_torch.examples, each main(argv) with every count set to 0 just
+     before it and read just after, at the reference scripts' own sizes:
+     quickstart (c7_absmax_scale validated and inside a program, two K1
+     launches; the two tenants coalesced into one k1_batch_kernel
+     launch), sort_prefix_apps at its default 16 MiB (2²² keys: K5 and
+     nine K6 levels, K3, each a warm-up and a timed call; the plan's two
+     K1 parts at 2²²), serve_decode (reduced Hymba-1.5B, 4 × 64 prompts,
+     32 sampled tokens: K4 once a layer in prefill, each call held
+     against float64 as it runs; run again, and once on the plain path),
+     train_lm --tiny for TRAIN_LM_STEPS = 200 steps (reduced Llama-3:
+     dense, chunked attention, so no kernel of K1–K8; 200 and not 20
+     steps because the optimizer's warmup holds the learning rate at
+     2% of its peak through step 20, where the reduced model's loss on
+     the CPU went 6.6566 → 6.7326 from step 10 to 20, and 6.7160 →
+     6.5789 over the first and last five logged of 200). Prints one
+     ``example`` JSON line per twin: wall seconds, launches
 
 Tolerances (fixed before any run):
   * copy, scale, add: bit-exact against the emulator and the oracle;
@@ -377,6 +394,18 @@ Tolerances (fixed before any run):
     while a count that missed the optimizer's moments or the saved
     layer inputs (each ≥ 5 GB) would fall outside; its roofline lower
     bound beside the measured step seconds, not gated;
+  * P: the launch counts above, exactly; c7 ≤ 2 ulp against the oracle
+    and the emulator (D's), the program's value equal to the sum of the
+    validated launch's output; each tenant's result bit for bit against
+    its solo K1 launch and the interpret path, and against ref at the
+    multiply-add bound; the sort bit-exact against torch.sort and the
+    plain network, the prefix sum at F's K3 bound against float64, the
+    plan's outputs at I's bound (hold_plan); serve_decode's K4 calls at
+    J's bound, its tokens in range and equal on a second run (the plain
+    path's agreement printed, not gated: sampling at temperature 0.8);
+    train_lm's final loss finite, a checkpoint written, and the mean of
+    its last TRAIN_LM_WINDOW = 5 logged losses below that of its first
+    five by more than TRAIN_LM_FALL = 0.05;
   * peak device memory per phase: 3 GB for A–D, 6 GB for E (torch.sort's
     own temporaries in the reference's base-core levels), 4 GB for F and G
     (padding the one-row operand to 8 rows would pass it), for H the
@@ -388,7 +417,7 @@ Tolerances (fixed before any run):
     the forward and backward's, the optimizer update's: 50.2 GB); 3 GB
     for M; for N's parent L's (N2's one-process layer holds 33.8 GB of
     experts, N3's reference is L's step); 3 GB for O1 (x 256 MiB and
-    four outputs of 128 MiB), L's for O2 (L's step).
+    four outputs of 128 MiB), L's for O2 (L's step), 3 GB for P.
 
 Bounds: the larger of the bytes a call must move at 3.35 TB/s and its
 operations at the peak rate of their kind — 67 TFLOP/s for fp32 work on
@@ -424,8 +453,8 @@ import repro_torch.kernels  # noqa: E402,F401  (registers the ISA)
 from repro_torch.core import isa  # noqa: E402
 from repro_torch.core import program as prog_mod  # noqa: E402
 from repro_torch.core.fused_kernel import K1  # noqa: E402
-from repro_torch.core.isa import Instruction, OperandSpec  # noqa: E402
 from repro_torch.core.template import KernelTemplate  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import prefix_scan as ps  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
@@ -498,6 +527,8 @@ ROUTER_SHAPE, ROUTER_K = (4096, 384), 8     # phase M: H's prefill router
 O1_SHAPE = (8192, 8192)            # phase O1: 2²⁶ float32 elements
 O2_PEAK_RATIO = (0.8, 1.25)        # phase O2: predicted / measured peak
 N6_SLO_MS = 0.5                    # N6's --slo-shed run: every step misses
+TRAIN_LM_STEPS = 200               # phase P's train_lm (see the docstring)
+TRAIN_LM_WINDOW, TRAIN_LM_FALL = 5, 0.05   # its losses: means of 5 logged
 LM_REDUCED = ["n_layers 61 → 2: two layers of bf16 weights are 67.9 GiB "
               "on one 80 GB card",
               "attn_impl chunked → kernel: the switch under which prefill "
@@ -569,7 +600,7 @@ PEAK_MEM_LIMIT = {"A": 3e9, "B": 3e9, "C": 3e9, "D": 3e9,
                      for ph, (arch, b, p, _) in SSM_SERVES.items()},
                   "L": train_peak_limit(get_config(TRAIN_ARCH), TRAIN_BATCH,
                                         TRAIN_SEQ),
-                  "M": 3e9, "O1": 3e9,
+                  "M": 3e9, "O1": 3e9, "P": 3e9,
                   "O2": train_peak_limit(get_config(TRAIN_ARCH),
                                          TRAIN_BATCH, TRAIN_SEQ)}
 KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
@@ -591,43 +622,15 @@ KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
 
 
 # ---------------------------------------------------------------------------
-# phase D's user-defined instruction (examples/quickstart.py §1–3)
+# phase D's user-defined instruction: the quickstart's (examples/quickstart.py
+# §1–3, repro_torch.examples.quickstart)
 # ---------------------------------------------------------------------------
 
-def _absmax_body(scalars, ins, carry, step):
-    blk = ins[0]
-    m = torch.maximum(carry, blk.abs().amax(dim=-1, keepdim=True))
-    return (blk / torch.clamp_min(m, 1e-9),), m   # running absmax carries
-
-
-_ABSMAX_TRITON = """
-def absmax_scale(x0, carry, step):
-    m = tl.maximum(carry, tl.max(tl.abs(x0), axis=1)[:, None])
-    return x0 / tl.maximum(m, 1e-9), m
-"""
-
-ABSMAX = KernelTemplate(name="c7_absmax_scale", body=_absmax_body,
-                        n_vec_in=1, n_vec_out=1, carry_cols=1,
-                        carry_init=0.0, triton_body=_ABSMAX_TRITON)
-
-
-def absmax_ref(x: torch.Tensor, block: int) -> torch.Tensor:
-    """Oracle: each block scaled by the running absmax of its row so far."""
-    rows, cols = x.shape
-    xb = x.reshape(rows, cols // block, block)
-    run = torch.cummax(xb.abs().amax(dim=-1), dim=-1).values
-    return (xb / torch.clamp_min(run[..., None], 1e-9)).reshape(rows, cols)
+ABSMAX = quickstart.TEMPLATE
 
 
 def register_absmax() -> None:
-    isa.register(Instruction(
-        name="c7_absmax_scale",
-        spec=OperandSpec(itype="I'", vector_in=1, vector_out=1),
-        ref=lambda x: absmax_ref(x, ABSMAX.block_cols),
-        kernel=lambda x, interpret=False: ABSMAX(x, interpret=interpret),
-        pipeline_depth=ABSMAX.pipeline_depth(),
-        doc="streaming blockwise absmax normalisation (stateful demo)"),
-        overwrite=True)
+    isa.register(quickstart.instruction(), overwrite=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4281,6 +4284,202 @@ def run_phase_o2(dev, check, rows):
     del state, batch
 
 
+# ---------------------------------------------------------------------------
+# phase P: the four user-facing examples, through their twins in
+# repro_torch.examples
+# ---------------------------------------------------------------------------
+
+COUNTERS = {"K1": (K1, "launches"), "K3": (K3, "launches"),
+            "K4": (K4, "launches"), "K4 reverse": (K4, "reverse_launches"),
+            "K5": (K5, "launches"), "K6": (K6, "launches"),
+            "K7": (K7, "launches"), "K8": (K8, "launches")}
+
+
+def zero_counts() -> None:
+    for obj, attr in COUNTERS.values():
+        setattr(obj, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(obj, attr) for name, (obj, attr) in
+            COUNTERS.items()}
+
+
+def run_example(name: str, argv) -> tuple[str, object, dict, float]:
+    """One example twin's ``main(argv)`` with every count set to 0 just
+    before it: (what it printed, its result, the counts just after, wall
+    seconds ending in a synchronize on the card). Its printout is
+    echoed."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    zero_counts()
+    t0 = time.perf_counter()
+    text, ret = _captured(mod.main, argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    print(f"--- {name} {' '.join(argv)}\n{text}", end="", flush=True)
+    return text, ret, counts, wall
+
+
+def launches_want(counts: dict, **want) -> bool:
+    """Every count equals ``want``'s (K4 reverse as ``K4_reverse``), 0
+    where it names none."""
+    return all(counts[k] == want.get(k.replace(" ", "_"), 0) for k in counts)
+
+
+def example_line(name: str, argv, wall: float, counts: dict, **extra):
+    print(json.dumps({"example": {
+        "name": name, "argv": list(argv), "card": CARD, "wall_s": wall,
+        "launches": counts, **extra}}), flush=True)
+
+
+def logged_losses(text: str) -> list[float]:
+    """The losses of the train driver's ``step N loss L …`` lines."""
+    return [float(ln.split()[3]) for ln in text.splitlines()
+            if ln.startswith("step ")]
+
+
+def losses_fall(losses: list[float], k: int = TRAIN_LM_WINDOW) -> bool:
+    """The mean of the last ``k`` logged losses below that of the first
+    ``k`` by more than ``TRAIN_LM_FALL``."""
+    return (len(losses) >= 2 * k and
+            float(np.mean(losses[-k:])) < float(np.mean(losses[:k]))
+            - TRAIN_LM_FALL)
+
+
+def run_phase_p(dev, check, rows):
+    """The four example twins on the card at the reference scripts' own
+    sizes, each with every count set to 0 just before it and read just
+    after, each output held against its plain version or oracle. On a
+    CPU ``dev`` the twins run their kernels' plain versions (a rehearsal:
+    every launch count then fails)."""
+    from repro_torch.examples import kernel_mode
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 products in fp32
+    argv = ["--device", dev.type]
+    mode = kernel_mode(dev)
+
+    # quickstart: c7 validated and inside a program (two K1 launches), the
+    # two tenants coalesced into one k1_batch_kernel launch
+    with Tap(K1, "launch_items") as tb:
+        _, out, counts, wall = run_example("quickstart", argv)
+    check.true(f"P quickstart: launches {counts}, want K1 3 and no other "
+               f"kernel", launches_want(counts, K1=3))
+    check.true(f"P quickstart: {len(tb.calls)} k1_batch_kernel launches, "
+               f"want 1", len(tb.calls) == 1)
+    x, ker = out["x"], out["kernel"]
+    ulp_ref = max_ulp(ker, out["oracle"])
+    ulp_plain = max_ulp(ker, quickstart.TEMPLATE(x, interpret=True))
+    check.true(f"P c7 kernel vs ref: {ulp_ref} ulp > 2", ulp_ref <= 2)
+    check.true(f"P c7 kernel vs emulator: {ulp_plain} ulp > 2",
+               ulp_plain <= 2)
+    check.true(f"P program {out['program']} != the validated launch's sum",
+               out["program"] == float(ker.sum()))
+    rep = out["report"]
+    fused = out["registry"].fuse("c0_scale", "c0_add")
+    y, b = out["y"], out["b"]
+    check.true("P tenants: not one coalesced batch",
+               len({p.batch_seq for p in rep.placements}) == 1
+               and all(p.coalesced for p in rep.placements))
+    for seq, (u, v) in enumerate(((y, b), (b, y))):
+        got = rep.results[seq]
+        check.shaped(f"P tenant {seq}", got, u.shape)
+        check.exact(f"P tenant {seq} vs its solo launch", got,
+                    fused(2.0, u, v, mode=mode))
+        check.within(f"P tenant {seq} vs ref", got,
+                     fused(2.0, u, v, mode="ref"), fma_bound((2.0 * u, v)))
+        check.exact(f"P tenant {seq} vs interpret", got,
+                    fused(2.0, u, v, mode="interpret"))
+    example_line("quickstart", argv, wall, counts,
+                 k1_batch_launches=len(tb.calls),
+                 c7_max_ulp_vs_ref=ulp_ref, c7_max_ulp_vs_plain=ulp_plain)
+    del out, rep
+
+    # sort_prefix_apps at its default size: each step a warm-up and a
+    # timed call; the plan's two parts on K1
+    _, out, counts, wall = run_example("sort_prefix_apps", argv)
+    keys, x = out["keys"], out["x"]
+    n = keys.numel()
+    levels = sum(1 for w in MERGE_WIDTHS if w < n and 2 * w <= 4096)
+    parts = out["plan"].n_parts
+    check.true(f"P sort_prefix_apps: launches {counts}, want K5 2, K6 "
+               f"{2 * levels}, K3 2, K1 {parts}",
+               launches_want(counts, K5=2, K6=2 * levels, K3=2, K1=parts))
+    check.exact("P sort vs torch.sort", out["sorted"], out["library_sorted"])
+    check.exact("P sort vs the plain network", out["sorted"],
+                ops.sortnet_mergesort(keys[None], max_kernel_width=4096,
+                                      mode="interpret")[0])
+    bc = ps.block_shape(1, n)[1]
+    ref64 = torch.cumsum(x.double(), 0)
+    abs64 = torch.cumsum(x.abs().double(), 0)
+    bad, worst = prefix_bound_misses(out["prefix"], ref64, abs64, bc,
+                                     *ps.k3_bound_constants(x.dtype, n))
+    check.true(f"P prefix sum: {bad} elements outside the summation bound",
+               bad == 0)
+    xa, ba = out["plan_inputs"]
+    plan_err = hold_plan(check, "P plan", out["plan"], out["plan_outputs"],
+                         xa, ba, (2.0, 0.5))
+    example_line("sort_prefix_apps", argv, wall, counts, keys=n,
+                 prefix_max_abs_err_f64=worst, prefix_rel_err=out["rel_err"],
+                 plan_max_abs_err_vs_plain=plan_err)
+    del out, keys, x, ref64, abs64, xa, ba
+
+    # serve_decode: reduced Hymba, K4 once a layer in prefill, each call
+    # held against float64 as it runs; a second run gives the same tokens
+    cfg = get_config("hymba_1p5b").reduced()
+
+    def hold(args, kw, got):
+        a, states, _ = args
+        rows_k4 = math.prod(states.shape) // states.shape[1]
+        return statescan_bound_misses(
+            got, a, states, ps.block_shape(rows_k4, states.shape[1])[1])
+
+    with Tap(ps, "chunk_scan_state_kernel", hold) as t4:
+        _, tokens, counts, wall = run_example("serve_decode", argv)
+    check.true(f"P serve_decode: launches {counts}, want K4 "
+               f"{cfg.n_layers} and no other kernel",
+               launches_want(counts, K4=cfg.n_layers))
+    for i, (bad, _) in enumerate(t4.calls):
+        check.true(f"P serve_decode K4 call {i}: {bad} elements outside "
+                   f"the summation bound", bad == 0)
+    check.true(f"P serve_decode tokens {tokens.shape}, want (4, 32) ids "
+               f"below {cfg.vocab}", tokens.shape == (4, 32)
+               and bool(((tokens >= 0) & (tokens < cfg.vocab)).all()))
+    _, again, _, _ = run_example("serve_decode", argv)
+    check.true("P serve_decode: run 2's tokens differ from run 1's",
+               np.array_equal(again, tokens))
+    with isa.use("interpret"):
+        _, plain_tokens, plain_counts, _ = run_example("serve_decode", argv)
+    check.true(f"P serve_decode plain run: launches {plain_counts}, want "
+               f"none", launches_want(plain_counts))
+    example_line("serve_decode", argv, wall, counts,
+                 k4_max_abs_err_f64=max((w for _, w in t4.calls),
+                                        default=None),
+                 tokens_equal_plain_path=float(
+                     np.mean(plain_tokens == tokens)))
+
+    # train_lm --tiny: the dense chunked path launches none of K1–K8
+    ckpt = ROOT / "build" / "chip_smoke" / "train_lm"
+    if ckpt.exists():
+        import shutil
+        shutil.rmtree(ckpt)
+    argv = ["--tiny", "--steps", str(TRAIN_LM_STEPS), "--device", dev.type,
+            "--ckpt-dir", str(ckpt)]
+    text, final, counts, wall = run_example("train_lm", argv)
+    losses = logged_losses(text)
+    check.true(f"P train_lm: launches {counts}, want none (a dense model "
+               f"with chunked attention)", launches_want(counts))
+    check.true(f"P train_lm: final loss {final} not finite",
+               math.isfinite(final))
+    check.true(f"P train_lm: losses {losses} do not fall by "
+               f"{TRAIN_LM_FALL}", losses_fall(losses))
+    check.true("P train_lm: no checkpoint written",
+               any(ckpt.iterdir()) if ckpt.exists() else False)
+    example_line("train_lm", argv, wall, counts, losses=losses,
+                 steps_per_s=TRAIN_LM_STEPS / wall)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this test "
@@ -4310,7 +4509,8 @@ def main() -> int:
                         ("I", run_phase_i), ("J", run_phase_j),
                         ("K", run_phase_k), ("L", run_phase_l),
                         ("M", run_phase_m), ("N", run_phase_n),
-                        ("O1", run_phase_o1), ("O2", run_phase_o2)):
+                        ("O1", run_phase_o1), ("O2", run_phase_o2),
+                        ("P", run_phase_p)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats(dev)
         try:

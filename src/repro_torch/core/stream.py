@@ -85,12 +85,21 @@ class StreamConfig:
                              "(LLC block holds whole sub-blocks, §3.1.3)")
 
     # -- derived geometry ---------------------------------------------------
+    def vlen_elems(self, dtype) -> int:
+        return self.vlen_bits // _bits(dtype)
+
     def block_elems(self, dtype) -> int:
         return self.block_bits // _bits(dtype)
 
     def sub_blocks(self) -> int:
         """Paper §3.1.3: sub-blocks per LLC block."""
         return self.block_bits // self.vlen_bits
+
+    def block_shape_2d(self, dtype) -> tuple[int, int]:
+        """A (rows, LANES) tile covering one streamed block."""
+        elems = self.block_elems(dtype)
+        rows = max(1, elems // LANES)
+        return (rows, LANES)
 
     # -- budget check (BRAM capacity analogue) ------------------------------
     def smem_footprint_bytes(self, n_operands: int) -> int:

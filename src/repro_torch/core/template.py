@@ -37,6 +37,7 @@ intermediates through registers instead of device memory.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -164,3 +165,12 @@ class KernelTemplate:
         # A template launch IS the single-stage program: one stage, the
         # template's own block geometry, one launch.
         return self.program().call_blocks(*operands, interpret=interpret)
+
+    # ------------------------------------------------------------------
+    def reference(self, ref_fn: Callable) -> Callable:
+        """Tag a torch oracle with the same calling convention."""
+        @functools.wraps(ref_fn)
+        def wrapped(*operands, interpret: bool = False):  # interpret ignored
+            del interpret
+            return ref_fn(*operands)
+        return wrapped

@@ -73,6 +73,14 @@ from repro_torch.models.params import (abstract_params, init_params,
                                        logical_axes)
 
 
+def grow_cache_fn(cfg, prefill_len, capacity):
+    """Close over the static sizes: a function of the cache that grows
+    it from ``prefill_len`` to ``capacity`` positions."""
+    def f(cache):
+        return M.grow_cache(cfg, cache, prefill_len, capacity)
+    return f
+
+
 def sample(logits: torch.Tensor, generator: torch.Generator | None,
            temperature: float) -> torch.Tensor:
     """(B, vocab) logits → (B, 1) int32 tokens: argmax at temperature 0,
@@ -97,7 +105,7 @@ def prefill(cfg, params: dict, prompts: torch.Tensor, gen: int,
     prompt_len = prompts.shape[1]
     t0 = time.perf_counter()
     logits, cache = M.prefill(cfg, params, {"tokens": prompts})
-    cache = M.grow_cache(cfg, cache, prompt_len, prompt_len + gen)
+    cache = grow_cache_fn(cfg, prompt_len, prompt_len + gen)(cache)
     tok = sample(logits, generator, temperature)
     _sync(prompts.device)
     return tok, cache, time.perf_counter() - t0
