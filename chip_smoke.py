@@ -8,7 +8,7 @@ registered instructions, fused chains and the coalesced batch path, all
 launching the generated Triton kernel K1; the paper's two applications
 (§4.3), which launch the sorting networks K5/K6 (CUDA C++) and the
 look-back scan K3 (CUDA C++); the Mamba2 SSD state scan, which launches
-K4 (Gluon, Triton's dialect with explicit layouts) — at full size (every array
+K4 (the affine fold, CUDA C++) — at full size (every array
 ≥ 4× the 50 MB L2: 2²⁶ 4-byte elements = 256 MiB); the LM server at
 Kimi-K2's published widths, whose MoE router launches K7 (top-k, CUDA
 C++) and K3 and whose prefill attention launches K8 (CUDA C++, wgmma and
@@ -34,7 +34,9 @@ Exits non-zero, printing no result, when no CUDA device is visible or
 any phase fails.
 
 Phases (inputs from numpy with a fixed seed):
-  A  c0_copy / c0_scale / c0_add / c0_triad solo at N = 2²⁶ (float32)
+  A  c0_copy / c0_scale / c0_add / c0_triad solo at N = 2²⁶ (float32);
+     then c0_add at N = 2²⁶ − 1000, the tail masked where the former
+     path padded both operands by a copy
   B  fuse(c0_scale, c0_add) and fuse(c0_scale, c0_add, c0_copy) at N = 2²⁶
   C  call_batch of 16 scale→add requests, 16 distinct scalars, N = 2²² each:
      one launch of K1's batch kernel on the items where they lie (no
@@ -59,9 +61,8 @@ Phases (inputs from numpy with a fixed seed):
      4096 → 64 heads), batch 4, seq 8192 at chunk 256 → 32 chunks:
      ops.chunk_scan_state(a, states, axis=1), states (4, 32, 64, 64, 128)
      float32 — one launch of K4's state-scan entry on the states where
-     they lie; the former path (K4 on the decay broadcast to state rank
-     and both moved, 2 × 256 MiB of copies) is run beside it and timed
-     as "was"
+     they lie; K4's rows entry on the decay broadcast to state rank and
+     both moved (2 × 256 MiB of copies) run beside it
   H  the LM server (repro_torch.launch.serve.generate) on Kimi-K2 1T-A32B
      (src/repro/configs/kimi_k2_1t.py) at every published width — d_model
      7168, 64 heads, 8 KV heads of 128, 384 experts top-8 of width 2048,
@@ -254,8 +255,23 @@ Tolerances (fixed before any run):
     |Δ| ≤ 0.05, a regression limit about 6× the largest |Δ| measured on
     an H100 at this seed with the earlier, carried K3;
   * state scan (G), against a float64 sequential recurrence:
-    (⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps_f32·Σ_{j≤i}|bⱼ|, valid since
-    0 < a ≤ 1 (one more rounding for the products);
+    k4_bound_steps(i)·eps_f32·Σ_{j≤i}|bⱼ| = (i + 2)·eps_f32·Σ|bⱼ|, valid
+    since 0 < a ≤ 1: K4 folds in order, bⱼ passing i − j products and
+    i − j + 1 adds, each rounded once; the former Gluon kernel (a tree
+    in one block of the C chunks) within max(i + 2, ⌈log2 C⌉ + 3) of the
+    same; K4's rows entry on G's materialised operands (32 columns: the
+    fold) within the same bound and bit for bit to its plain walk, the
+    former Gluon kernel beside it within max(i + 2, ⌈log2 32⌉ + 3); on
+    the few long rows of K4_ROWS_SHAPES (past 64 columns: the Gluon
+    kernel kept) it and its plain walk within
+    prefix_scan.k4_rows_bound_steps, ⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2, the
+    tree in a block of bc columns and a carry a block;
+  * "was" (every K1 solo row of A, B, D, O1 and I's plans, every K4 row):
+    the former kernel (experiments/former_kernels.py) on the same inputs,
+    timed in turns was, new, new, was; K1's new solo kernel bit for bit
+    against it (the same stage arithmetic on every element, each row's
+    carry in the same column order), the ragged row also against the
+    emulator and torch.add;
   * K7 (H): values (by their bits) and indices bit-exact against the
     oracle ref.topk (lax.top_k's order) everywhere, and against the plain
     network (the JAX kernel's) on every input without NaN and without
@@ -285,28 +301,28 @@ Tolerances (fixed before any run):
     ulp;
   * H: every prefill and decode logit finite, the greedy tokens of two
     runs on the same inputs bit-identical, the launch counts above;
-  * G: the in-place call bit-identical to K4 on the materialised operands
-    (both entries scan each row in one stated register layout,
-    ``prefix_scan.scan_layout``, so in one order); it and the plain
-    version each within the float64 bound above, and |K4 − plain| within
-    the same bound. J, K: each prefill K4 call within the same bound on
-    its own inputs (a weak hold: under the reference's init every
+  * G: the in-place call bit-identical to K4's rows entry on the
+    materialised operands and to the plain walk (one fold, each product
+    and add rounded alone); it and the plain version each within the
+    float64 bound above. J, K: each prefill K4 call within the same bound
+    on its own inputs (a weak hold: under the reference's init every
     chunk's decay is 0 in float32, so y = b there); so, at the path's
-    shape on G's kind of random decays in (0, 1], the same three holds
-    as G's and bit-identity to the materialised path; logits finite, two
+    shape on G's kind of random decays in (0, 1], G's holds; logits finite, two
     greedy runs bit-identical, the launch counts above, J's scheduled
     tokens equal to its unscheduled ones with nothing shed;
   * L: every step's loss and gradient norm finite; step 0 (warmup, lr
     0) leaves the params bit for bit; step 1 moves them; the launch
-    counts above, each step. At the step's states shape: K4's forward
-    entry, the plain walk and |K4 − plain| within G's float64 bound; the
-    reverse walk bit-identical to the forward entry on flipped copies
-    (it maps the chunk index only: layout and combine order are the
-    forward's), and, flipped, the same three holds; c4_statescan's
-    backward in kernel and interpret modes against float64 at
+    counts above, each step (K4's da pass once a reverse walk). At the
+    step's states shape: K4's forward entry with G's holds; the reverse
+    walk bit-identical to the forward entry on flipped copies (it maps
+    the chunk index only), and, flipped, G's holds; c4_statescan's
+    backward in kernel and interpret modes bit for bit (λ the same fold,
+    da the same reduction order: state_da_plain), da the same bits on a
+    second run, both modes and the former path (the former walk, then
+    the product at the states' size summed by torch) against float64 at
     ``statescan_grad_misses``' bounds (ds = λ at G's bound counted from
-    the end, da through the product and the reduction), and the two
-    modes' ds within that bound of each other. The 2-layer float32
+    the end, da through the product and the reduction: b_da), the fused
+    da within 2·b_da of the former path's. The 2-layer float32
     gradient: every leaf of kernel mode and of interpret mode within
     TRAIN_GRAD_REL = 1e-4 of its max |g| of ref mode's, and the loss
     within 1e-4 relative (the issue's tolerance for the port's gradients
@@ -430,6 +446,7 @@ unless the environment names others.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -445,14 +462,17 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "experiments"))   # former_kernels (was)
 os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
 os.environ.setdefault("REPRO_TORCH_BUILD_DIR",
                       str(ROOT / "build" / "repro_torch"))
 
 import repro_torch.kernels  # noqa: E402,F401  (registers the ISA)
 from repro_torch.core import isa  # noqa: E402
+from repro_torch.core import fused_kernel as fk  # noqa: E402
 from repro_torch.core import program as prog_mod  # noqa: E402
 from repro_torch.core.fused_kernel import K1  # noqa: E402
+from repro_torch.core.stream import flatten_to_blocks  # noqa: E402
 from repro_torch.core.template import KernelTemplate  # noqa: E402
 from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
@@ -484,6 +504,7 @@ SEED = 0
 N_STREAM = 1 << 26                 # 256 MiB per float32 array
 N_ITEM, N_ITEMS = 1 << 22, 16      # phase C: 16 requests of 16 MiB
 N_RAGGED = N_ITEM - 1000           # phase C's second batch: a masked tail
+N_RAGGED_SOLO = N_STREAM - 1000    # phase A's ragged solo call
 CARRIED_ITEM = (1000, 16381)       # phase D's batch of 4 (ragged) items
 ABSMAX_SHAPE = (4096, 16384)       # phase D
 SCALE, TRIAD_S = 2.5, 3.0
@@ -608,8 +629,11 @@ KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
            "src/repro/core/program.py:914"),
     "K3": ("cuda", "src/repro_torch/kernels/csrc/prefix_scan.cu",
            "src/repro/kernels/prefix_scan.py:66"),
-    "K4": ("triton", "src/repro_torch/kernels/prefix_scan.py",
+    "K4": ("cuda", "src/repro_torch/kernels/csrc/prefix_scan.cu",
            "src/repro/kernels/prefix_scan.py:123"),
+    # K4's rows entry past 64 columns: the former Gluon kernel, kept
+    "K4 rows": ("triton", "src/repro_torch/kernels/prefix_scan.py",
+                "src/repro/kernels/prefix_scan.py:123"),
     "K5": ("cuda", "src/repro_torch/kernels/csrc/sortnet.cu",
            "src/repro/kernels/sortnet.py:139"),
     "K6": ("cuda", "src/repro_torch/kernels/csrc/sortnet.cu",
@@ -977,65 +1001,77 @@ def prefix_bound_misses(got, ref64, abs64, bc: int, k_abs: int,
     return bad, worst
 
 
-def statescan_f64(a, states, bc: int, extra: int = 2):
+def fold_steps(c, n_c: int = 0, was: bool = False):
+    """k(c) of K4's first-order bound k(c)·eps32·Σ|b| at walk step c
+    (``prefix_scan.k4_bound_steps``: the sequential fold); with ``was``
+    at least the former tree scan's over ``n_c`` chunks in one block,
+    ⌈log2 n_c⌉ + 3, so that one bound holds for both designs."""
+    k = ps.k4_bound_steps(c)
+    return max(k, math.ceil(math.log2(max(n_c, 1))) + 3) if was else k
+
+
+def statescan_f64(a, states, was: bool = False):
     """For each chunk c along axis 1: (c, the float64 sequential recurrence
-    y_c = a_c·y_{c-1} + b_c, its bound (⌈log2 bc⌉ + ⌈(c+1)/bc⌉ + extra)·
-    eps32·Σ_{j≤c}|b_j|)."""
-    lg = math.ceil(math.log2(bc))
+    y_c = a_c·y_{c-1} + b_c, its bound fold_steps(c)·eps32·Σ_{j≤c}|b_j|;
+    ``was``: the bound that also holds the former tree scan)."""
     y = torch.zeros_like(states[:, 0], dtype=torch.float64)
     s = torch.zeros_like(y)
     for c in range(states.shape[1]):
         b = states[:, c].double()
         y = a[:, c, :, None, None].double() * y + b
         s = s + b.abs()
-        yield c, y, (lg + math.ceil((c + 1) / bc) + extra) * EPS * s
+        yield c, y, fold_steps(c, states.shape[1], was) * EPS * s
 
 
-def statescan_bound_misses(got, a, states, bc: int,
-                           extra: int = 2) -> tuple[int, float]:
+def statescan_bound_misses(got, a, states,
+                           was: bool = False) -> tuple[int, float]:
     """The same bound for the state scan along axis 1, against a float64
     sequential recurrence y_c = a_c·y_{c-1} + b_c."""
     bad, worst = 0, 0.0
-    for c, y, bound in statescan_f64(a, states, bc, extra):
+    for c, y, bound in statescan_f64(a, states, was):
         err = (got[:, c].double() - y).abs()
         bad += int((err > bound).sum())
         worst = max(worst, float(err.max()))
     return bad, worst
 
 
-def hold_statescan(check, what, got, plain, a, states, bc: int) -> float:
+def hold_statescan(check, what, got, plain, a, states) -> float:
     """The kernel's ``got`` and the plain version's ``plain`` each within
-    the state scan's float64 bound, and |got − plain| within that same
-    bound, element by element; returns the kernel's max |Δ| to float64."""
-    bad = {"K4": 0, "plain": 0, "|K4 - plain|": 0}
+    the state scan's float64 bound, and bit-identical to each other (one
+    fold, one rounding order); returns the kernel's max |Δ| to float64."""
+    bad = {"K4": 0, "plain": 0}
     worst = 0.0
-    for c, y, bound in statescan_f64(a, states, bc):
+    for c, y, bound in statescan_f64(a, states):
         g, p = got[:, c].double(), plain[:, c].double()
-        for key, err in (("K4", (g - y).abs()), ("plain", (p - y).abs()),
-                         ("|K4 - plain|", (g - p).abs())):
+        for key, err in (("K4", (g - y).abs()), ("plain", (p - y).abs())):
             bad[key] += int((err > bound).sum())
         worst = max(worst, float((g - y).abs().max()))
     for key, n in bad.items():
         check.true(f"{what} {key}: {n} elements outside the summation "
                    f"bound", n == 0)
+    check.exact(f"{what} K4 vs plain", got, plain)
     return worst
 
 
-def statescan_grad_misses(grads: dict, a, states, g, bc: int) -> tuple:
+def statescan_grad_misses(grads: dict, a, states, g,
+                          was: bool = False) -> tuple:
     """The backward of ``y = chunk_scan_state(a, states, axis=1)`` under
     the output's gradient ``g``, held against float64 for each mode's
-    ``(da, ds)`` in ``grads`` and between the first two modes' ds; returns
-    ({check: elements outside its bound}, {check: largest |Δ|}).
+    ``(da, ds)`` in ``grads`` and between the first two modes' ds and da;
+    returns ({check: elements outside its bound}, {check: largest |Δ|}).
 
     * ds = λ, λ[c] = g[c] + a[c+1]·λ[c+1]: the state scan's first-order
-      bound counted from the end, (⌈log2 bc⌉ + ⌈(C−c)/bc⌉ + 2)·eps32·
-      Σ_{j≥c}|g_j|;
+      bound counted from the end, fold_steps(C−1−c)·eps32·Σ_{j≥c}|g_j|;
     * da[c] = Σ_{P,N} λ[c]·y[c−1] (y[−1] = 0): Σ(b_λ·|y[c−1]| +
       |λ[c]|·b_y[c−1]) + P·N·eps32·Σ|λ[c]·y[c−1]|, b_y the forward's
       bound, P·N·eps32 the product's and the reduction's own rounding in
-      any summation order."""
+      any summation order;
+    * between the first two modes: ds within b_λ, da within 2·b_da
+      (each within b_da of float64).
+
+    ``was``: a mode is the former design (a tree scan in one block), so
+    every step's constant is at least the tree's (:func:`fold_steps`)."""
     n_c = states.shape[1]
-    lg = math.ceil(math.log2(bc))
     ad = a.double()[..., None, None]
     sd, gd = states.double(), g.double()
     y, lam = torch.empty_like(sd), torch.empty_like(gd)
@@ -1047,12 +1083,12 @@ def statescan_grad_misses(grads: dict, a, states, g, bc: int) -> tuple:
     for c in reversed(range(n_c)):
         acc = gd[:, c] + (ad[:, c + 1] * acc if c + 1 < n_c else 0.0)
         lam[:, c] = acc
-    c = torch.arange(n_c, device=g.device, dtype=torch.float64).reshape(
-        (1, n_c) + (1,) * (g.ndim - 2))
-    b_y = (lg + torch.ceil((c + 1) / bc) + 2) * EPS * torch.cumsum(
-        sd.abs(), 1)
-    b_lam = (lg + torch.ceil((n_c - c) / bc) + 2) * EPS * torch.cumsum(
-        gd.abs().flip(1), 1).flip(1)
+    shape = (1, n_c) + (1,) * (g.ndim - 2)
+    k_y = torch.tensor([fold_steps(c, n_c, was) for c in range(n_c)],
+                       dtype=torch.float64, device=g.device).reshape(shape)
+    k_lam = k_y.flip(1)
+    b_y = k_y * EPS * torch.cumsum(sd.abs(), 1)
+    b_lam = k_lam * EPS * torch.cumsum(gd.abs().flip(1), 1).flip(1)
     del sd, gd, acc
     prev = torch.cat([torch.zeros_like(y[:, :1]), y[:, :-1]], 1)
     b_prev = torch.cat([torch.zeros_like(b_y[:, :1]), b_y[:, :-1]], 1)
@@ -1071,9 +1107,10 @@ def statescan_grad_misses(grads: dict, a, states, g, bc: int) -> tuple:
             bad[key] = int((err > bound).sum())
             worst[key] = float(err.max())
     m0, m1 = list(grads)[:2]
-    err = (grads[m0][1].double() - grads[m1][1].double()).abs()
-    key = f"|ds {m0} - {m1}|"
-    bad[key], worst[key] = int((err > b_lam).sum()), float(err.max())
+    for i, key, bound in ((1, f"|ds {m0} - {m1}|", b_lam),
+                          (0, f"|da {m0} - {m1}|", 2 * b_da)):
+        err = (grads[m0][i].double() - grads[m1][i].double()).abs()
+        bad[key], worst[key] = int((err > bound).sum()), float(err.max())
     return bad, worst
 
 
@@ -1281,8 +1318,85 @@ def max_abs(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
+# K1's former solo kernel in place of the new one ("was")
+# ---------------------------------------------------------------------------
+
+class _WasK1:
+    """Stands in for ``fused_kernel.K1`` while a solo path runs on the
+    former kernel (``experiments/former_kernels.py``): ``compile`` hands
+    the chain itself to the launch, and a launch pads a flat operand to
+    whole blocks (the former path's copy, where the tail is ragged), runs
+    the former kernel and cuts the outputs back to ``n``. Not counted."""
+
+    item_copies = 0
+
+    @staticmethod
+    def compile(stages, n_ext, batch: bool = False, ragged: bool = False):
+        if batch:
+            raise ValueError("the former solo kernel has no batch route")
+        return (stages, n_ext), False
+
+    def __call__(self, kernel, table, vectors, n_out, block_rows,
+                 block_cols, out_specs=None):
+        import former_kernels as former
+        stages, n_ext = kernel
+        v0 = vectors[0]
+        flat = v0.ndim == 1
+        vecs = ([flatten_to_blocks(v, block_cols, block_rows)[0]
+                 for v in vectors] if flat else list(vectors))
+        outs = former.k1_solo(stages, n_ext, table, vecs, n_out, block_rows,
+                              block_cols, out_specs)
+        return [o.reshape(-1)[:v0.numel()] for o in outs] if flat else outs
+
+
+@contextlib.contextmanager
+def former_k1(programs):
+    """Inside: the solo launches of ``programs`` (their launch closures
+    rebuilt on entry and on exit) go to the former kernel."""
+    saved = fk.K1
+    for prog in programs:
+        prog._exe_cache.clear()
+    fk.K1 = _WasK1()
+    try:
+        yield
+    finally:
+        fk.K1 = saved
+        for prog in programs:
+            prog._exe_cache.clear()
+
+
+def k1_was_new(check, label: str, call, programs, reps: int = 20) -> dict:
+    """``call()`` (a solo K1 path) on the new kernel against the same call
+    on the former kernel: bit for bit, then timed in turns, was, new,
+    new, was. Returns the row's fields: ``timed`` (new's :func:`time_ms`
+    triple, the mean of its two runs) and the was fields."""
+    got = outputs(call())
+    with former_k1(programs):
+        was = outputs(call())
+    same = len(got) == len(was) and all(same_bits(g, w)
+                                        for g, w in zip(got, was))
+    check.true(f"{label}: K1's solo kernel not bit-identical to the former "
+               f"kernel's", same)
+    del got, was
+
+    def timed(former: bool):
+        with former_k1(programs) if former else contextlib.nullcontext():
+            return time_ms(call, reps)
+
+    w1, n1, n2, w2 = timed(True), timed(False), timed(False), timed(True)
+    return {"timed": tuple((u + v) / 2 for u, v in zip(n1, n2)),
+            "was_ms": (w1[0] + w2[0]) / 2, "was_wall_ms": (w1[1] + w2[1]) / 2,
+            "new_ms_runs": [n1[0], n2[0]], "was_ms_runs": [w1[0], w2[0]],
+            "bit_identical_to_was": same}
+
+
+# ---------------------------------------------------------------------------
 # the run
 # ---------------------------------------------------------------------------
+
+A_TEMPLATES = {"c0_copy": stream_copy.COPY, "c0_scale": stream_copy.SCALE,
+               "c0_add": stream_copy.ADD, "c0_triad": stream_copy.TRIAD}
+
 
 def run_phase_a(dev, check, rows):
     a, b = make_inputs(SEED, [N_STREAM, N_STREAM], dev)
@@ -1306,13 +1420,41 @@ def run_phase_a(dev, check, rows):
         else:
             check.exact(f"A {case} kernel vs emulator", got, plain)
             check.exact(f"A {case} kernel vs ref", got, ref)
+        err, err_ref = max_abs(got, plain), max_abs(got, ref)
+        del got, plain, ref
+        was = k1_was_new(check, f"A {case}", lambda: call(a, b, "kernel"),
+                         [A_TEMPLATES[case].program()])
         rows.append(entry(
-            f"A {case}", launches, max_abs(got, plain),
-            time_ms(lambda: call(a, b, "kernel")),
+            f"A {case}", launches, err, was.pop("timed"),
             time_ms(lambda: call(a, b, "interpret")),
             bytes_per * n, ops_per * n, time_ms(library[case]),
-            max_abs_err_ref=max_abs(got, ref)))
-        del got, plain, ref
+            max_abs_err_ref=err_ref, **was))
+    del a, b
+    # a ragged operand: the solo kernel masks the tail where the former
+    # path padded both operands by a copy first
+    a, b = make_inputs(SEED + 14, [N_RAGGED_SOLO, N_RAGGED_SOLO], dev)
+    n = N_RAGGED_SOLO
+    K1.launches = 0
+    got = ops.stream_add(a, b, mode="kernel")
+    launches = K1.launches
+    check.true(f"A c0_add ragged: {launches} launches, want 1",
+               launches == 1)
+    plain = ops.stream_add(a, b, mode="interpret")
+    check.shaped("A c0_add ragged", got, a.shape)
+    check.exact("A c0_add ragged kernel vs emulator", got, plain)
+    check.exact("A c0_add ragged kernel vs torch.add", got, torch.add(a, b))
+    del got, plain
+    was = k1_was_new(check, "A c0_add ragged",
+                     lambda: ops.stream_add(a, b, mode="kernel"),
+                     [stream_copy.ADD.program()])
+    rows.append(entry(
+        f"A c0_add ragged (n = 2^26 - 1000)", launches, 0.0,
+        was.pop("timed"),
+        time_ms(lambda: ops.stream_add(a, b, mode="interpret")),
+        12 * n, n, time_ms(lambda: torch.add(a, b)),
+        was_is="the former path: both operands padded by a copy, the "
+               "former kernel, the output cut to n", **was))
+    del a, b
 
 
 def run_phase_b(dev, check, rows):
@@ -1331,14 +1473,18 @@ def run_phase_b(dev, check, rows):
         check.shaped(f"B {case}", got, x.shape)
         check.within(f"B {case} kernel vs emulator", got, plain, bound)
         check.within(f"B {case} kernel vs ref", got, ref, bound)
+        err, err_ref = max_abs(got, plain), max_abs(got, ref)
+        del got, plain, ref
+        was = k1_was_new(check, f"B {case}",
+                         lambda: fused(SCALE, x, b, mode="kernel"),
+                         [fused.program])
         rows.append(entry(
-            f"B {case}", launches, max_abs(got, plain),
-            time_ms(lambda: fused(SCALE, x, b, mode="kernel")),
+            f"B {case}", launches, err, was.pop("timed"),
             time_ms(lambda: fused(SCALE, x, b, mode="interpret")),
             12 * n, 2 * n, time_ms(lambda: torch.add(b, x, alpha=SCALE)),
-            max_abs_err_ref=max_abs(got, ref),
-            block=list(fused.program.negotiate_geometry(n, x.dtype)[:2])))
-        del got, plain, ref
+            max_abs_err_ref=err_ref,
+            block=list(fused.program.negotiate_geometry(n, x.dtype)[:2]),
+            **was))
 
 
 def run_phase_c(dev, check, rows):
@@ -1430,14 +1576,17 @@ def run_phase_d(dev, check, rows):
     check.true(f"D kernel vs ref: {ulp_ref} ulp > 2", ulp_ref <= 2)
     check.exact("D emulator vs ref", plain, ref)
     n = x.numel()
+    err, err_ref = max_abs(got, plain), max_abs(got, ref)
+    del got, plain, ref
+    was = k1_was_new(check, "D c7_absmax_scale",
+                     lambda: phase_d(x, "kernel"), [ABSMAX.program()])
     rows.append(entry(
-        "D c7_absmax_scale", launches, max_abs(got, plain),
-        time_ms(lambda: phase_d(x, "kernel")),
+        "D c7_absmax_scale", launches, err, was.pop("timed"),
         time_ms(lambda: phase_d(x, "interpret")),
-        8 * n, 3 * n, None, max_abs_err_ref=max_abs(got, ref),
+        8 * n, 3 * n, None, max_abs_err_ref=err_ref,
         max_ulp_vs_plain=ulp_plain, max_ulp_vs_ref=ulp_ref,
-        block=[ABSMAX.block_rows, ABSMAX.block_cols]))
-    del x, got, plain, ref
+        block=[ABSMAX.block_rows, ABSMAX.block_cols], **was))
+    del x
     # the same program's coalesced batch: 4 ragged items, each as its
     # solo call (the carry runs along a row; only a tail is masked)
     prog = ABSMAX.program()
@@ -1667,22 +1816,150 @@ def run_phase_f(dev, check, rows):
 
 
 def materialised(a, states):
-    """The operands K4 took on the c4_statescan path before its state-scan
-    entry: the decay broadcast to state rank and both moved so the chunks
-    are the last axis, as (rows, chunks) copies."""
+    """The operands of K4's contiguous-rows entry for the same scan: the
+    decay broadcast to state rank and both moved so the chunks are the
+    last axis, as (rows, chunks) copies."""
     chunks = states.shape[1]
     return (torch.movedim(a[..., None, None].expand(states.shape), 1,
                           -1).reshape(-1, chunks),
             torch.movedim(states, 1, -1).reshape(-1, chunks))
 
 
-def former_statescan(a, states):
-    """The whole former c4_statescan kernel call: the copies, K4 on them,
-    and the result moved back."""
+def rows_entry_statescan(a, states, reverse: bool = False):
+    """The state scan through K4's contiguous-rows entry on the
+    materialised operands, moved back to the states' layout."""
     ab, bb = materialised(a, states)
-    out = ps.chunk_scan_kernel(ab, bb).reshape(
+    out = ps.chunk_scan_kernel(ab, bb, reverse=reverse).reshape(
         torch.movedim(states, 1, -1).shape)
     return torch.movedim(out, -1, 1)
+
+
+def was_new(new, was, reps: int = 20) -> tuple[tuple, tuple, dict]:
+    """(new's, was's :func:`time_ms` triples, the four device readings):
+    the two timed in turns, was, new, new, was, in one call on one card;
+    each triple the mean of its two runs."""
+    w1, n1, n2, w2 = (time_ms(was, reps), time_ms(new, reps),
+                      time_ms(new, reps), time_ms(was, reps))
+
+    def mean(x, y):
+        return tuple((u + v) / 2 for u, v in zip(x, y))
+
+    return mean(n1, n2), mean(w1, w2), {"new_ms_runs": [n1[0], n2[0]],
+                                        "was_ms_runs": [w1[0], w2[0]]}
+
+
+def k4_row(check, label: str, a, states, launches: int, what: str,
+           counted_in: str, reverse: bool = False, **extra) -> dict:
+    """K4's state-scan entry at one shape (``reverse``: the backward's
+    walk from the last chunk, under the decay it is given), against:
+    its plain walk bit for bit and, with it, float64 at the fold's bound
+    (the reverse walk on flipped chunks); the contiguous-rows entry on
+    the materialised operands bit for bit (up to 64 chunks the two
+    entries fold alike); the former Gluon kernel ("was",
+    ``experiments/former_kernels.py``) within the bound of its tree scan.
+    Times was, new, new, was; returns the ``kernels`` row."""
+    import former_kernels as former
+    flip = (lambda t: t.flip(1)) if reverse else (lambda t: t)
+    got = K4.state_scan(a, states, 1, reverse)
+    plain = ps.chunk_scan_state_kernel(a, states, 1, interpret=True,
+                                       reverse=reverse)
+    worst = hold_statescan(check, f"{label} K4", flip(got), flip(plain),
+                           flip(a), flip(states))
+    err = max_abs(got, plain)
+    del plain
+    same = torch.equal(got, rows_entry_statescan(a, states, reverse))
+    check.true(f"{label} K4: the state entry is not bit-identical to the "
+               f"rows entry on the materialised operands", same)
+    was = former.k4_state_scan(a, states, 1, reverse)
+    bad_was, worst_was = statescan_bound_misses(flip(was), flip(a),
+                                                flip(states), was=True)
+    check.true(f"{label} K4 was: {bad_was} elements outside its bound",
+               bad_was == 0)
+    del got, was
+    new_t, was_t, runs = was_new(
+        lambda: K4.state_scan(a, states, 1, reverse),
+        lambda: former.k4_state_scan(a, states, 1, reverse))
+    n = states.numel()
+    return entry(
+        f"{label} {what} {tuple(states.shape)} float32 in place",
+        launches, err, new_t,
+        time_ms(lambda: ps.chunk_scan_state_kernel(
+            a, states, 1, interpret=True, reverse=reverse), reps=3),
+        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4",
+        walk=ps.state_walk(n // (states.shape[0] * states.shape[1]
+                                 * states.shape[2]), states.shape[1], 4),
+        max_abs_err_f64=worst, entries_bit_identical=same,
+        was_ms=was_t[0], was_wall_ms=was_t[1], was_max_abs_err_f64=worst_was,
+        **runs, launches_counted_in=counted_in, **extra)
+
+
+#: K4's rows entry at a few long rows (off the model paths: c4_chunkscan
+#: and ChunkScanFn), past 64 columns: the former Gluon kernel, kept
+K4_ROWS_SHAPES = [(3, 5000), (8, 1024)]
+
+
+def k4_rows_row(check, label: str, a, b, counted_in: str, **extra) -> dict:
+    """K4's contiguous-rows entry on (rows, cols) operands. Up to 64
+    columns (``k4_rows_kernel``, the fold): bit for bit to its plain
+    walk, within the fold's bound of float64, timed against the former
+    Gluon kernel ("was", ``prefix_scan.gluon_chunk_scan``, within the
+    bound of its tree) in turns, was, new, new, was. Past them (the Gluon
+    kernel kept): it and its plain walk within
+    ``prefix_scan.k4_rows_bound_steps``, timed alone. Returns the
+    ``kernels`` row."""
+    n_rows, cols = a.shape
+    fold = cols <= ps.K4_FOLD_COLS
+
+    def gluon():
+        return ps.gluon_chunk_scan(a, b, torch.empty_like(a))
+
+    got = ps.chunk_scan_kernel(a, b)
+    plain = ps.chunk_scan_kernel(a, b, interpret=True)
+    if fold:
+        check.exact(f"{label} K4 rows entry {tuple(a.shape)} vs plain", got,
+                    plain)
+    outs = {"K4": got, "plain": plain}
+    if fold:
+        outs["was"] = gluon()
+    n_c = ps.block_shape(n_rows, cols)[1]
+    y = torch.zeros(n_rows, dtype=torch.float64, device=a.device)
+    s = torch.zeros_like(y)
+    bad = {key: torch.zeros((), dtype=torch.int64, device=a.device)
+           for key in outs}
+    worst = {key: torch.zeros((), dtype=torch.float64, device=a.device)
+             for key in outs}
+    for c in range(cols):
+        y = a[:, c].double() * y + b[:, c].double()
+        s = s + b[:, c].double().abs()
+        for key, out in outs.items():
+            k = (fold_steps(c, n_c, was=True) if key == "was"
+                 else ps.k4_rows_bound_steps(c, n_rows, cols))
+            err = (out[:, c].double() - y).abs()
+            bad[key] += (err > k * EPS * s).sum()
+            worst[key] = torch.maximum(worst[key], err.max())
+    for key in bad:
+        check.true(f"{label} K4 rows entry {tuple(a.shape)} {key}: "
+                   f"{int(bad[key])} elements outside the summation bound",
+                   int(bad[key]) == 0)
+    err = max_abs(got, plain)
+    del got, plain, outs
+    runs = {}
+    if fold:
+        new_t, was_t, runs = was_new(lambda: ps.chunk_scan_kernel(a, b),
+                                     gluon)
+        runs.update(was_ms=was_t[0], was_wall_ms=was_t[1],
+                    was_max_abs_err_f64=float(worst["was"]))
+    else:
+        new_t = time_ms(lambda: ps.chunk_scan_kernel(a, b))
+    n = a.numel()
+    return entry(
+        f"{label} rows entry {tuple(a.shape)} float32", 0, err, new_t,
+        time_ms(lambda: ps.chunk_scan_kernel(a, b, interpret=True), reps=3),
+        12 * n, 2 * n, None, kernel="K4" if fold else "K4 rows",
+        rows_kernel="k4_rows_kernel" if fold else "gluon k4_chunk_scan",
+        max_abs_err_f64=float(worst["K4"]),
+        plain_max_abs_err_f64=float(worst["plain"]), **runs,
+        launches_counted_in=counted_in, **extra)
 
 
 def run_phase_g(dev, check, rows):
@@ -1692,36 +1969,21 @@ def run_phase_g(dev, check, rows):
     launches = K4.launches
     check.true(f"G: {launches} K4 launches, want 1", launches == 1)
     check.shaped("G chunk_scan_state", got, states.shape)
-    plain = phase_g(a, states, "interpret")
-    chunks = SSD_SHAPE[1]
-    br, bc = ps.block_shape(states.numel() // chunks, chunks)
-    worst = hold_statescan(check, "G", got, plain, a, states, bc)
-    err = max_abs(got, plain)
-    del plain
-    # the former path (K4 on the broadcast, moved copies) gives the same
-    # bits: the entry scans each row in K4's own layout and order
-    was = former_statescan(a, states)
-    same = torch.equal(got, was)
-    check.true("G: the in-place call is not bit-identical to K4 on the "
-               "materialised operands", same)
-    del got, was
+    del got
     call = time_ms(lambda: phase_g(a, states, "kernel"))
-    was_call = time_ms(lambda: former_statescan(a, states))
+    rows.append(k4_row(check, "G", a, states, launches,
+                       "chunk_scan_state", "phase G's call",
+                       call_ms=call[0], call_wall_ms=call[1]))
+    # the rows entry: on G's operands materialised as (rows, chunks), and
+    # on a few long rows; no model path runs it
+    off = "no main path (c4_chunkscan, ChunkScanFn)"
     ab, bb = materialised(a, states)
-    was_k4 = time_ms(lambda: ps.chunk_scan_kernel(ab, bb))
+    del states
+    rows.append(k4_rows_row(check, "G", ab, bb, off))
     del ab, bb
-    n = states.numel()
-    rows.append(entry(
-        "G chunk_scan_state (4,32,64,64,128) float32 in place", launches,
-        err, time_ms(lambda: K4.state_scan(a, states, 1)),
-        time_ms(lambda: phase_g(a, states, "interpret"), reps=5),
-        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
-        max_abs_err_f64=worst, scan_layout=ps.scan_layout(
-            br, bc, ps._num_warps(br, bc)),
-        call_ms=call[0], call_wall_ms=call[1],
-        bit_identical_to_was=same, was_call_ms=was_call[0],
-        was_call_wall_ms=was_call[1], was_k4_ms=was_k4[0],
-        was_k4_bytes=12 * n, was_k4_bound_ms=bound_ms(12 * n, 2 * n)[0]))
+    for i, shape in enumerate(K4_ROWS_SHAPES):
+        a2, b2 = ssd_inputs(SEED + 50 + i, shape, (), dev)
+        rows.append(k4_rows_row(check, "G", a2, b2, off))
 
 
 def hold_attention(check, what, q, k, v, out, plain=None):
@@ -2079,12 +2341,10 @@ def run_phase_ssm(phase: str, dev, check, rows):
     init_s = time.perf_counter() - t0
     prompts = serve_prompts(SEED + 21, cfg, batch, prompt_len, dev)
     chunks = prompt_len // cfg.ssm_chunk
-    rows_k4 = batch * cfg.ssm_heads * cfg.ssm_headdim * cfg.ssm_state
-    bc = ps.block_shape(rows_k4, chunks)[1]
 
     def hold(args, kw, out):           # K4's call checked as it runs
         a, states, axis = args
-        bad, worst = statescan_bound_misses(out, a, states, bc)
+        bad, worst = statescan_bound_misses(out, a, states)
         return (tuple(states.shape), axis, bad, worst)
 
     # the main path: the server, with its launches counted
@@ -2140,25 +2400,10 @@ def run_phase_ssm(phase: str, dev, check, rows):
     # decays are 0 in float32 (the reference's init), so there y = b and
     # its hold above cannot see a wrong decay index or carry
     a, states = ssd_inputs(SEED + 22, want_shape[:3], want_shape[3:], dev)
-    got = K4.state_scan(a, states, 1)
-    plain = ps.chunk_scan_state_kernel(a, states, 1, interpret=True)
-    worst = hold_statescan(check, f"{phase} K4 at the path's shape", got,
-                           plain, a, states, bc)
-    check.true(f"{phase} K4 at the path's shape: not bit-identical to K4 "
-               f"on the materialised operands",
-               torch.equal(got, former_statescan(a, states)))
-    n = states.numel()
-    rows.append(entry(
-        f"{phase} chunk_scan_state {want_shape} float32 in place "
-        f"({arch} prefill)", launches["K4"], max_abs(got, plain),
-        time_ms(lambda: K4.state_scan(a, states, 1)),
-        time_ms(lambda: ps.chunk_scan_state_kernel(a, states, 1,
-                                                   interpret=True), reps=5),
-        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4",
-        block=list(ps.block_shape(n // chunks, chunks)),
-        max_abs_err_f64=worst,
-        launches_counted_in=f"phase {phase}'s server run (prefill)"))
-    del a, states, got, plain
+    rows.append(k4_row(check, phase, a, states, launches["K4"],
+                       f"chunk_scan_state ({arch} prefill)",
+                       f"phase {phase}'s server run (prefill)"))
+    del a, states
 
     if phase == "J":
         # the scheduled decode: the same tokens as the unscheduled server
@@ -2408,7 +2653,11 @@ def run_phase_i(dev, check, rows):
     for plan, sc, err, n_out in zip(plans, scalars, errs_b, (2, 1)):
         unfused = partition(plan.graph, model=H100, n_elems=N_SCHED_PLAN,
                             method="singletons")
-        timed = time_ms(lambda: plan(x, b, *sc, mode="kernel"))
+        was = k1_was_new(check, f"I sched B: plan {plan.graph.name}",
+                         lambda: plan(x, b, *sc, mode="kernel"),
+                         [p.program for p in plan.parts
+                          if p.program is not None])
+        timed = was.pop("timed")
         unf = time_ms(lambda: unfused(x, b, *sc, mode="kernel"))
         name = plan.graph.name
         fusion[name] = {
@@ -2428,7 +2677,7 @@ def run_phase_i(dev, check, rows):
             (2 + n_out) * 4 * N_SCHED_PLAN, plan.graph.flops(N_SCHED_PLAN),
             None,
             launches_counted_in="phase I's scheduler run",
-            unfused_ms=unf[0]))
+            unfused_ms=unf[0], **was))
     del x, b
     mark("B's rows")
 
@@ -2499,8 +2748,9 @@ def k4_by_direction(events, n_layers: int) -> dict:
     """Device ms of K4's forward and reverse launches in one traced train
     step under remat full, told apart by their order (both directions are
     one kernel): the forward's n_layers, then per layer from the last the
-    recompute's forward and the backward's reverse walk."""
-    k4 = [ms for name, ms in events if "k4_state_scan" in name]
+    recompute's forward and the backward's reverse walk (da's second
+    pass, ``k4_da_kernel``, is not among them)."""
+    k4 = [ms for name, ms in events if "k4_state" in name]
     if len(k4) != 3 * n_layers:
         return {"k4_events": len(k4), "forward_ms": None,
                 "reverse_ms": None}
@@ -2547,14 +2797,15 @@ def run_phase_l(dev, check, rows):
         torch.cuda.synchronize()
         with Tap(ps, "chunk_scan_state_kernel",
                  lambda args, kw, out: tuple(out.shape)) as t4:
-            K4.launches = K4.reverse_launches = K7.launches = 0
-            K3.launches = K8.launches = 0
+            K4.launches = K4.reverse_launches = K4.da_launches = 0
+            K7.launches = K3.launches = K8.launches = 0
             t0 = time.perf_counter()
             new_state, metrics = step_fn(state, batch)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
             launches = {"K4 forward": K4.launches,
                         "K4 reverse": K4.reverse_launches,
+                        "K4 da": K4.da_launches,
                         "K7": K7.launches, "K3": K3.launches,
                         "K8": K8.launches}
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
@@ -2563,10 +2814,10 @@ def run_phase_l(dev, check, rows):
         check.true(f"L step {i}: loss {loss}, grad norm {gnorm} not finite",
                    math.isfinite(loss) and math.isfinite(gnorm))
         check.true(f"L step {i}: launches {launches}, want K4 {2 * n_l} "
-                   f"forward (forward and remat's recompute) and {n_l} "
-                   f"reverse, no other kernel",
+                   f"forward (forward and remat's recompute), {n_l} "
+                   f"reverse and {n_l} da passes, no other kernel",
                    launches == {"K4 forward": 2 * n_l, "K4 reverse": n_l,
-                                "K7": 0, "K3": 0, "K8": 0})
+                                "K4 da": n_l, "K7": 0, "K3": 0, "K8": 0})
         check.true(f"L step {i}: K4 scanned states of {set(t4.calls)}, "
                    f"want {states_shape} only",
                    set(t4.calls) == {states_shape})
@@ -2621,83 +2872,82 @@ def hold_train_scan(dev, check, rows, shape, launches, label: str = "L",
     """K4 at the train step's own states shape (B, C, H, P, N), on random
     decays in (0, 1] (the model's own are 0 in float32, so there λ = g):
     the forward entry and the reverse walk on the backward's operands
-    (the shifted decay a[c+1]) each at G's float64 bound and against
-    its plain walk, the reverse bit-identical to the forward on flipped
-    copies; then c4_statescan's backward (StateScanFn: the shifted
-    decay, the reverse walk, da's reduction) in kernel and interpret
-    modes against float64 (:func:`statescan_grad_misses`). Adds the
-    forward's and the reverse walk's ``kernels`` rows with the step's
-    launch counts."""
+    (the shifted decay a[c+1]) as :func:`k4_row` holds them, the reverse
+    also bit-identical to the forward on flipped copies; then
+    c4_statescan's backward (StateScanFn: the shifted decay, the reverse
+    walk that reduces da, da's second pass) in kernel and interpret modes
+    and the former path (``former_kernels.state_scan_grad``: the former
+    walk, then da as the product at the states' size and a torch sum)
+    against float64 (:func:`statescan_grad_misses`): kernel and interpret
+    bit for bit, the fused da within 2·b_da of the former's, the same
+    bits on a second run. Adds the forward's and the reverse walk's
+    ``kernels`` rows with the step's launch counts, the backward call's
+    time beside the former path's."""
+    import former_kernels as former
     a, s = ssd_inputs(SEED + 31, shape[:3], shape[3:], dev)
     g = ssd_inputs(SEED + 32, shape[:3], shape[3:], dev)[1]
-    chunks = shape[1]
-    br, bc = ps.block_shape(s.numel() // chunks, chunks)
-    n = s.numel()
-    fwd = K4.state_scan(a, s, 1)
-    plain = ps.chunk_scan_state_kernel(a, s, 1, interpret=True)
-    worst_f = hold_statescan(check, f"{label} K4 forward", fwd, plain, a, s, bc)
-    err_f = max_abs(fwd, plain)
-    del fwd, plain
-    rows.append(entry(
-        f"{label} chunk_scan_state {shape} float32 in place (the train step's "
-        f"forward and recompute)", launches["K4 forward"], err_f,
-        time_ms(lambda: K4.state_scan(a, s, 1)),
-        time_ms(lambda: ps.chunk_scan_state_kernel(a, s, 1, interpret=True),
-                reps=5),
-        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
-        max_abs_err_f64=worst_f,
-        launches_counted_in=counted_in))
-
+    rows.append(k4_row(check, label, a, s, launches["K4 forward"],
+                       "chunk_scan_state (the train step's forward and "
+                       "recompute)", counted_in))
     shifted = ps.next_decay(a, 1)
     rev = K4.state_scan(shifted, g, 1, reverse=True)
     flipped = K4.state_scan(shifted.flip(1), g.flip(1), 1).flip(1)
     same = torch.equal(rev, flipped)
-    check.true(f"{label} K4 reverse walk: not bit-identical to the forward entry "
-               "on flipped copies", same)
-    del flipped
-    plain = ps.chunk_scan_state_kernel(shifted, g, 1, interpret=True,
-                                       reverse=True)
-    # the reverse walk is the forward recurrence on flipped chunks: held
-    # there against float64 at G's bound
-    worst_r = hold_statescan(check, f"{label} K4 reverse walk", rev.flip(1),
-                             plain.flip(1), shifted.flip(1), g.flip(1), bc)
-    err_r = max_abs(rev, plain)
-    del rev, plain
+    check.true(f"{label} K4 reverse walk: not bit-identical to the forward "
+               "entry on flipped copies", same)
+    del rev, flipped
+    rev_row = k4_row(check, label, shifted, g, launches["K4 reverse"],
+                     "reverse walk (the backward of c4_statescan)",
+                     counted_in, reverse=True,
+                     bit_identical_to_forward_flipped=same,
+                     forward_launches_in_step=launches["K4 forward"],
+                     da_launches_in_step=launches.get("K4 da"))
 
     grads, bw = {}, {}
     for mode in ("kernel", "interpret"):
         ar, sr = a.clone().requires_grad_(), s.clone().requires_grad_()
-        K4.launches = K4.reverse_launches = 0
+        K4.launches = K4.reverse_launches = K4.da_launches = 0
         y = ops.chunk_scan_state(ar, sr, axis=1, mode=mode)
         grads[mode] = torch.autograd.grad(y, (ar, sr), g)
-        bw[mode] = (K4.launches, K4.reverse_launches)
+        bw[mode] = (K4.launches, K4.reverse_launches, K4.da_launches)
         del y, ar, sr
-    check.true(f"{label} backward: K4 (forward, reverse) launches {bw}, want "
-               f"(1, 1) in kernel mode and none in interpret mode",
-               bw == {"kernel": (1, 1), "interpret": (0, 0)})
-    bad, worst = statescan_grad_misses(grads, a, s, g, bc)
-    for key, k in bad.items():
-        check.true(f"{label} backward {key}: {k} elements outside the bound", k == 0)
+    check.true(f"{label} backward: K4 (forward, reverse, da) launches {bw}, "
+               f"want (1, 1, 1) in kernel mode and none in interpret mode",
+               bw == {"kernel": (1, 1, 1), "interpret": (0, 0, 0)})
     y = K4.state_scan(a, s, 1)
+    grads["was"] = former.state_scan_grad(a, y, g, 1)
+    for key, (i, j) in {"ds": (1, 1), "da": (0, 0)}.items():
+        check.exact(f"{label} backward {key} kernel vs interpret",
+                    grads["kernel"][i], grads["interpret"][j])
+    again = ps.state_scan_grad(a, y, g, 1)
+    check.exact(f"{label} backward da, run 2 vs run 1", again[0],
+                grads["kernel"][0])
+    del again
+    bad, worst = statescan_grad_misses(
+        {"kernel": grads["kernel"], "interpret": grads["interpret"]}, a, s,
+        g)
+    bad_w, worst_w = statescan_grad_misses(
+        {"kernel": grads["kernel"], "was": grads["was"]}, a, s, g, was=True)
+    bad.update(bad_w)
+    worst.update(worst_w)
+    for key, k in bad.items():
+        check.true(f"{label} backward {key}: {k} elements outside the bound",
+                   k == 0)
     del grads
-    rows.append(entry(
-        f"{label} reverse walk {shape} float32 in place (the backward of "
-        f"c4_statescan)", launches["K4 reverse"], err_r,
-        time_ms(lambda: K4.state_scan(shifted, g, 1, reverse=True)),
-        time_ms(lambda: ps.chunk_scan_state_kernel(
-            shifted, g, 1, interpret=True, reverse=True), reps=5),
-        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
-        max_abs_err_f64=worst_r, bit_identical_to_forward_flipped=same,
-        backward_call_ms=time_ms(
-            lambda: ps.state_scan_grad(a, y, g, 1))[0],
-        launches_counted_in=counted_in,
-        forward_launches_in_step=launches["K4 forward"]))
+    call_new, call_was, call_runs = was_new(
+        lambda: ps.state_scan_grad(a, y, g, 1),
+        lambda: former.state_scan_grad(a, y, g, 1))
+    rev_row.update(backward_call_ms=call_new[0],
+                   was_backward_call_ms=call_was[0],
+                   backward_call_ms_runs=call_runs)
+    rows.append(rev_row)
     del a, s, g, y, shifted
-    return {"states": list(shape), "block": [br, bc],
+    return {"states": list(shape), "walk": rev_row["walk"],
             "bit_identical_to_forward_flipped": same,
-            "forward_max_abs_err_f64": worst_f,
-            "reverse_max_abs_err_f64": worst_r,
-            "backward_outside_bound": bad, "backward_max_abs_err": worst}
+            "reverse_max_abs_err_f64": rev_row["max_abs_err_f64"],
+            "backward_outside_bound": bad, "backward_max_abs_err": worst,
+            "backward_call_ms": call_new[0],
+            "was_backward_call_ms": call_was[0]}
 
 
 def hold_train_grads(dev, check, cfg) -> dict:
@@ -2722,15 +2972,16 @@ def hold_train_grads(dev, check, cfg) -> dict:
         with isa.use(mode), Tap(
                 ps, "chunk_scan_state_kernel",
                 lambda args, kw, o: args[0].detach().flatten()) as t4:
-            K4.launches = K4.reverse_launches = 0
+            K4.launches = K4.reverse_launches = K4.da_launches = 0
             grads, metrics = grad_fn(params, batch)
-            launches = (K4.launches, K4.reverse_launches)
+            launches = (K4.launches, K4.reverse_launches, K4.da_launches)
         if mode == "kernel":
             decays = torch.cat(t4.calls[:TRAIN_GRAD_LAYERS])
-            want = (2 * TRAIN_GRAD_LAYERS, TRAIN_GRAD_LAYERS)
+            want = (2 * TRAIN_GRAD_LAYERS, TRAIN_GRAD_LAYERS,
+                    TRAIN_GRAD_LAYERS)
         else:
-            want = (0, 0)
-        check.true(f"L grads {mode} mode: K4 (forward, reverse) launches "
+            want = (0, 0, 0)
+        check.true(f"L grads {mode} mode: K4 (forward, reverse, da) launches "
                    f"{launches}, want {want}", launches == want)
         out[mode] = (grads, float(metrics["loss"]))
         del grads, metrics
@@ -3211,7 +3462,8 @@ def n3_rank(rank: int, batches: list, ref_path: str) -> dict:
     for i, b in enumerate(batches):
         rows = {k: torch.from_numpy(v[lo:lo + per]).to(dev)
                 for k, v in b.items()}
-        K4.launches = K4.reverse_launches = K7.launches = K3.launches = 0
+        K4.launches = K4.reverse_launches = K4.da_launches = 0
+        K7.launches = K3.launches = 0
         with Tap(api, "reduce_grads", lambda a, kw, o: o) as tap:
             (state, metrics), secs, coll, staged = _timed(
                 lambda: step_fn(state, rows))
@@ -3229,6 +3481,7 @@ def n3_rank(rank: int, batches: list, ref_path: str) -> dict:
                       "grad_err_by_leaf": err,
                       "launches": {"K4 forward": K4.launches,
                                    "K4 reverse": K4.reverse_launches,
+                                   "K4 da": K4.da_launches,
                                    "K7": K7.launches, "K3": K3.launches}})
     lr = float(api._optimizer(cfg).lr(len(batches) - 1))
     held = n3_hold_params(state["params"], grads, ref, pspecs, mesh, lr, dev)
@@ -3414,8 +3667,8 @@ def n7a_rank(rank: int, batches: list, ref_path: str) -> dict:
     steps = []
     for i, b in enumerate(batches):
         rows = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
-        K4.launches = K4.reverse_launches = K7.launches = 0
-        K3.launches = K8.launches = 0
+        K4.launches = K4.reverse_launches = K4.da_launches = 0
+        K7.launches = K3.launches = K8.launches = 0
         with Tap(ps, "chunk_scan_state_kernel",
                  lambda a, kw, o: tuple(o.shape)) as t4:
             (state, metrics), secs, coll, staged = _timed(
@@ -3427,6 +3680,7 @@ def n7a_rank(rank: int, batches: list, ref_path: str) -> dict:
                       "k4_shapes": sorted(set(t4.calls)),
                       "launches": {"K4 forward": K4.launches,
                                    "K4 reverse": K4.reverse_launches,
+                                   "K4 da": K4.da_launches,
                                    "K7": K7.launches, "K3": K3.launches,
                                    "K8": K8.launches}})
         del metrics
@@ -3718,10 +3972,11 @@ def run_n3(dev, check, rows) -> dict:
                        abs(st["grad_norm"] - ref_steps[i]["grad_norm"])
                        <= N3_GNORM_RTOL * ref_steps[i]["grad_norm"])
             check.true(f"N3 rank {r} step {i}: launches {st['launches']}, "
-                       f"want K4 {2 * n_l} forward and {n_l} reverse",
+                       f"want K4 {2 * n_l} forward, {n_l} reverse and "
+                       f"{n_l} da passes",
                        st["launches"] == {"K4 forward": 2 * n_l,
-                                          "K4 reverse": n_l, "K7": 0,
-                                          "K3": 0})
+                                          "K4 reverse": n_l, "K4 da": n_l,
+                                          "K7": 0, "K3": 0})
             bad = {k: v for k, v in st["grad_ratio_by_leaf"].items()
                    if not v <= N3_GRAD_REL}
             check.true(f"N3 rank {r} step {i}: reduced gradient leaves over "
@@ -3801,22 +4056,10 @@ def run_n4(dev, check, rows) -> dict:
     shape = (1, N4_SEQ // cfg.ssm_chunk, cfg.ssm_heads, cfg.ssm_headdim,
              cfg.ssm_state)
     a, s = ssd_inputs(SEED + 60, shape[:3], shape[3:], dev)
-    got = K4.state_scan(a, s, 1)
-    plain = ps.chunk_scan_state_kernel(a, s, 1, interpret=True)
-    br, bc = ps.block_shape(s.numel() // shape[1], shape[1])
-    worst = hold_statescan(check, "N4 K4 at a stage's shape", got, plain, a,
-                           s, bc)
-    n = s.numel()
-    rows.append(entry(
-        f"N4 chunk_scan_state {shape} float32 in place (a GPipe stage's "
-        f"layer)", ranks[0]["K4"], max_abs(got, plain),
-        time_ms(lambda: K4.state_scan(a, s, 1)),
-        time_ms(lambda: ps.chunk_scan_state_kernel(a, s, 1, interpret=True),
-                reps=5),
-        8 * n + 4 * a.numel(), 2 * n, None, kernel="K4", block=[br, bc],
-        max_abs_err_f64=worst,
-        launches_counted_in="phase N4, one stage (12 layers × 8 ticks)"))
-    del a, s, got, plain
+    rows.append(k4_row(check, "N4", a, s, ranks[0]["K4"],
+                       "chunk_scan_state (a GPipe stage's layer)",
+                       "phase N4, one stage (12 layers × 8 ticks)"))
+    del a, s
     return {"stages": N4_STAGES, "microbatches": N4_MICRO,
             "tokens_per_microbatch": N4_SEQ, "model": N_ARCH, "reduced": [],
             "bit_identical_to_one_process": same,
@@ -3978,8 +4221,8 @@ def run_n7a(dev, check, rows) -> dict:
         ref_path.unlink(missing_ok=True)
     shape = (N7A_BATCH, TRAIN_SEQ // cfg.ssm_chunk,
              cfg.ssm_heads // N7_MESH[1], cfg.ssm_headdim, cfg.ssm_state)
-    want_launches = {"K4 forward": 2 * n_l, "K4 reverse": n_l, "K7": 0,
-                     "K3": 0, "K8": 0}
+    want_launches = {"K4 forward": 2 * n_l, "K4 reverse": n_l,
+                     "K4 da": n_l, "K7": 0, "K3": 0, "K8": 0}
     for r, res in enumerate(ranks):
         for i, st in enumerate(res["steps"]):
             check.true(f"N7a rank {r} step {i}: loss {st['loss']} vs one "
@@ -4219,15 +4462,20 @@ def run_phase_o1(dev, check, rows):
                            ("the PyTorch call", library)):
             check.true(f"O1 {name}: kernel vs {what} not bit for bit",
                        same_bits(got, want))
+        err = max_abs(got.float(), interp.float())
+        out_bytes = got.numel() * got.element_size()
+        out_shape, out_dtype = list(got.shape), str(got.dtype)
+        del got, interp, ref, library
+        was = k1_was_new(check, f"O1 {name}",
+                         lambda: isa.call(name, x, mode="kernel"),
+                         [O1_TEMPLATES[name][0].program()])
         rows.append(entry(
-            f"O1 {name}", launches, max_abs(got.float(), interp.float()),
-            time_ms(lambda: isa.call(name, x, mode="kernel")),
+            f"O1 {name}", launches, err, was.pop("timed"),
             time_ms(lambda: isa.call(name, x, mode="interpret"), reps=5),
-            n * x.element_size() + got.numel() * got.element_size(),
+            n * x.element_size() + out_bytes,
             n // 2 if name == "pairsum" else 0,
             time_ms(lambda: plain_call(x)),
-            out_shape=list(got.shape), out_dtype=str(got.dtype)))
-        del got, interp, ref, library
+            out_shape=out_shape, out_dtype=out_dtype, **was))
 
 
 def run_phase_o2(dev, check, rows):
@@ -4291,6 +4539,7 @@ def run_phase_o2(dev, check, rows):
 
 COUNTERS = {"K1": (K1, "launches"), "K3": (K3, "launches"),
             "K4": (K4, "launches"), "K4 reverse": (K4, "reverse_launches"),
+            "K4 da": (K4, "da_launches"),
             "K5": (K5, "launches"), "K6": (K6, "launches"),
             "K7": (K7, "launches"), "K8": (K8, "launches")}
 
@@ -4431,9 +4680,7 @@ def run_phase_p(dev, check, rows):
 
     def hold(args, kw, got):
         a, states, _ = args
-        rows_k4 = math.prod(states.shape) // states.shape[1]
-        return statescan_bound_misses(
-            got, a, states, ps.block_shape(rows_k4, states.shape[1])[1])
+        return statescan_bound_misses(got, a, states)
 
     with Tap(ps, "chunk_scan_state_kernel", hold) as t4:
         _, tokens, counts, wall = run_example("serve_decode", argv)

@@ -18,7 +18,20 @@ everything else off HBM:
   per row block, which loops over that block's column blocks itself —
   Hopper blocks run in no order, so a carry cannot pass between
   programs; it lives in registers, set to ``carry_init`` before the
-  loop (this replaces ``pl.when(step == 0)``);
+  loop (this replaces ``pl.when(step == 0)``). The solo kernel issues
+  the loads of the next ``K1_PREFETCH`` column steps before it computes
+  the current one, so a walk's loads stream while its chain runs (D,
+  the carried 128-step walk, 0.2077 → 0.2018 ms; O1's 8-step walks
+  0.1426 → 0.1373 and 0.1415 → 0.1381; one-step chains as before, within
+  0.1–2.3% of one PyTorch call: ``chip_smoke.py``, NVIDIA H100 80GB HBM3,
+  700 W). Loads carry no eviction hint: ``evict_first`` cost 1–3% on
+  every one-step chain (``experiments/k1_k4_redesign.py --k1-designs``);
+* a solo launch takes the operands where they lie: flat operands of
+  ``n`` elements are walked as the reference's padded (rows, cols) and
+  the tail past ``n`` masked — a load reads 0, the pad's zeros, a store
+  is dropped — so nothing is padded (``Program.call_flat``; a ragged
+  c0_add at 2²⁶ − 1000 0.7984 → 0.2656 ms with the pad copies gone); a
+  shape-changing stage's outputs are written whole in that layout;
 * intermediates stay in registers (rounded to the operand dtype, as the
   reference's VMEM scratch rounds them); only the last stage stores;
 * scalars come from a float32 device table, no host sync: one row for
@@ -162,14 +175,16 @@ def emulate_items(stages: Sequence[Stage], n_ext: Sequence[int],
                   table: torch.Tensor,
                   items: Sequence[Sequence[torch.Tensor]],
                   block_rows: int, block_cols: int,
-                  items_div: int) -> list[list[torch.Tensor]]:
+                  items_div: int, out_specs=None) -> list[list[torch.Tensor]]:
     """The batch kernel's grid walk in torch eager: ``items[k]`` holds item
     k's vector operands (one shape, ``n`` elements each). Program ``pid``
     runs row block ``rb = pid % bpi`` of item ``pid // bpi`` (``bpi`` row
     blocks of ``block_rows × block_cols`` elements an item): it loads the
     item's elements ``rb · block + 0 … block − 1``, 0 from ``n`` on, and
     stores only those below ``n``. Returns item k's outputs, each a new
-    tensor of ``n`` elements."""
+    tensor of ``n`` elements. ``out_specs`` (one item: a solo
+    shape-changing launch on the padded layout) sizes the outputs as
+    :func:`emulate`'s, each cut to its first ``n`` elements."""
     k, n = len(items), items[0][0].numel()
     dev, dtype = items[0][0].device, items[0][0].dtype
     bpi = -(-n // (block_rows * block_cols))
@@ -182,7 +197,7 @@ def emulate_items(stages: Sequence[Stage], n_ext: Sequence[int],
             x[i, :n] = it[slot].reshape(-1)          # the masked load
         loaded.append(x.view(k * bpi * block_rows, block_cols))
     outs = emulate(stages, n_ext, table, loaded, block_rows, block_cols,
-                   items_div)
+                   items_div, out_specs)
     del loaded
     return [[o.view(k, -1)[i, :n].clone() for o in outs]   # masked store
             for i in range(k)]
@@ -237,11 +252,101 @@ def _chain_loop(stages: Sequence[Stage], n_ext: Sequence[int], fnames,
     return loop
 
 
+#: Column steps whose loads a solo program issues ahead of the step it
+#: computes (2: O1's 8-step walks 0.1371 / 0.1381 ms against 0.1392 /
+#: 0.1384 with 1 and 0.1423 / 0.1413 with none; D as with 1; one-step
+#: chains unchanged; ``experiments/k1_k4_redesign.py --k1-designs``,
+#: NVIDIA H100 80GB HBM3, 700 W).
+K1_PREFETCH = 2
+#: Warps of a solo program on a tile of 8192 elements or more (16
+#: elements a thread an operand; 8 ran B's chain 0.2652 ms against 0.2672,
+#: same script and card); 4 below (16 slowed D's 1024-element carried
+#: tile 0.2088 → 0.2234).
+K1_WIDE_WARPS = 16
+
+
+def _solo_source(stages, n_ext, head, fnames, params, ns, nv, no,
+                 ragged: bool) -> str:
+    """``k1_kernel``: a solo launch, one program per row block, which
+    walks the block's column steps in order with its carries in
+    registers (a loop inside the block in place of the TPU's sequential
+    grid axis). The loads of the next ``K1_PREFETCH`` steps are issued
+    before the current step is computed (masked off past the last), so
+    a carried walk's loads stream while its chain runs. With ``ragged``
+    every access past ``n_valid`` is masked: a load reads 0, the zero
+    padding of the reference's call, and a store is dropped."""
+    pf = K1_PREFETCH
+    params = params + ["n_units", "n_steps", "row_len", "BR: tl.constexpr",
+                       "BC: tl.constexpr", "NUNIT: tl.constexpr"]
+    body = [
+        "pid = tl.program_id(0)",
+        "rows = pid.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
+        "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
+    ]
+    if ragged:
+        # n_units · NUNIT: NUNIT = 16 bytes of elements when they divide n
+        # (below 2³¹), so the mask keeps 16-byte vectors whole
+        body.append("n_valid = n_units * NUNIT")
+    pre = []
+    if stages[-1].shape_preserving:
+        store = (lambda j, o: f"tl.store(O{j} + offs, "
+                              f"{o}.to(O{j}.dtype.element_ty)"
+                              + (", mask=offs < n_valid)" if ragged else ")"))
+    else:
+        # output j of a shape-changing stage: BO{j} columns a step, rows of
+        # n_steps · BO{j} elements (int64 offsets: rows is)
+        params += [f"BO{j}: tl.constexpr" for j in range(no)]
+        body += [f"obase{j} = rows[:, None] * (n_steps * BO{j}) "
+                 f"+ tl.arange(0, BO{j})[None, :]" for j in range(no)]
+        pre = [f"oofs{j} = obase{j} + step * BO{j}" for j in range(no)]
+        store = (lambda j, o: f"tl.store(O{j} + oofs{j}, "
+                              f"{o}.to(O{j}.dtype.element_ty))")
+    if ns:
+        body += [f"s{j} = tl.load(S + {j})" for j in range(ns)]
+    body.append("nocarry = tl.zeros((BR, 1), tl.float32)")
+    for k, st in enumerate(stages):
+        if st.carry_cols:
+            body.append(f"c{k} = tl.full((BR, {st.carry_cols}), _CINIT{k}, "
+                        f"tl.{dtype_name(st.carry_dtype)})")
+
+    for d in range(pf):          # the first steps' loads, before the walk
+        for i in range(nv):
+            off = f"base + {d} * BC" if d else "base"
+            mask = ([f"({d} < n_steps)"] if d else []) + (
+                [f"({off} < n_valid)"] if ragged else [])
+            body.append(f"x{i}_{d} = tl.load(X{i} + {off}" + (
+                f", mask={' & '.join(mask)}, other=0)" if mask else ")"))
+    loop = ["offs = base + step * BC"] + pre
+    if pf:
+        for i in range(nv):
+            loop.append(f"x{i} = x{i}_0")
+            loop += [f"x{i}_{d} = x{i}_{d + 1}" for d in range(pf - 1)]
+            off = f"offs + {pf} * BC"
+            mask = f"(step + {pf} < n_steps)" + (f" & ({off} < n_valid)"
+                                                  if ragged else "")
+            loop.append(f"x{i}_{pf - 1} = tl.load(X{i} + {off}, "
+                        f"mask={mask}, other=0)")
+        xload = lambda i: f"x{i}"                        # noqa: E731
+    else:
+        xload = lambda i: (f"tl.load(X{i} + offs" +       # noqa: E731
+                           (", mask=offs < n_valid, other=0)" if ragged
+                            else ")"))
+    chain = _chain_loop(stages, n_ext, fnames, xload, store)
+    # with the prefetch the operands are already x0, x1, …
+    loop += [ln for ln in chain if ln.split(" = ") != [ln.split(" = ")[0]] * 2]
+    lines = head + ["@triton.jit", f"def k1_kernel({', '.join(params)}):"]
+    lines += ["    " + ln for ln in body]
+    lines.append("    for step in range(0, n_steps):")
+    lines += ["        " + ln for ln in loop]
+    return "\n".join(lines) + "\n"
+
+
 def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int],
-                  batch: bool = False) -> str:
+                  batch: bool = False, ragged: bool = False) -> str:
     """The Triton module for one chain: stage device functions and K1 —
-    ``k1_kernel`` on whole-block 2-D operands, or with ``batch``
-    ``k1_batch_kernel`` on the items of a coalesced batch in place."""
+    ``k1_kernel`` on a solo launch's operands (with ``ragged``, their
+    tail past ``n`` masked), or with ``batch`` ``k1_batch_kernel`` on
+    the items of a coalesced batch in place."""
     ns = sum(st.n_scalar_in for st in stages)
     nv = sum(n_ext)
     no = stages[-1].n_vec_out
@@ -258,70 +363,48 @@ def kernel_source(stages: Sequence[Stage], n_ext: Sequence[int],
         head.append(_stage_function(st, fname))
     params = ((["S"] if ns else []) + [f"X{i}" for i in range(nv)]
               + [f"O{i}" for i in range(no)])
-    if batch:
-        # T: (k_items, nv + no) int64, each item's offset from item 0's
-        # pointer per slot in units of VEC elements (16 bytes)
-        params += ["T", "n_units", "n_steps", "row_len", "items_div",
-                   "blocks_per_item", "BR: tl.constexpr", "BC: tl.constexpr",
-                   "VEC: tl.constexpr", "NUNIT: tl.constexpr",
-                   "RAGGED: tl.constexpr"]
-        body = [
-            "pid = tl.program_id(0)",
-            "item = pid // blocks_per_item",
-            "rb = pid - item * blocks_per_item",
-            "rows = rb.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
-            "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
-            f"trow = T + item.to(tl.int64) * {nv + no}",
-        ]
-        body += [f"xo{i} = tl.multiple_of(tl.load(trow + {i}) * VEC, VEC)"
-                 for i in range(nv)]
-        body += [f"oo{j} = tl.multiple_of(tl.load(trow + {nv + j}) * VEC, "
-                 f"VEC)" for j in range(no)]
-        # n_units · NUNIT: NUNIT = VEC when VEC divides n (below 2³¹), so
-        # the mask keeps 16-byte vectors whole
-        body += ["n_valid = n_units * NUNIT",
-                 "zero = 0 if RAGGED else None"]
-        pre = ["mask = offs < n_valid if RAGGED else None"]
-        load = (lambda i: f"tl.load(X{i} + xo{i} + offs, mask=mask, "
-                          f"other=zero)")
-        store = (lambda j, o: f"tl.store(O{j} + oo{j} + offs, "
-                              f"{o}.to(O{j}.dtype.element_ty), mask=mask)")
-        name = "k1_batch_kernel"
-    else:
-        params += ["n_steps", "row_len", "BR: tl.constexpr",
-                   "BC: tl.constexpr"]
-        body = [
-            "pid = tl.program_id(0)",
-            "rows = pid.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
-            "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
-        ]
-        pre = []
-        load = lambda i: f"tl.load(X{i} + offs)"                # noqa: E731
-        if stages[-1].shape_preserving:
-            store = (lambda j, o: f"tl.store(O{j} + offs, "
-                                  f"{o}.to(O{j}.dtype.element_ty))")
-        else:
-            # output j of a shape-changing stage: BO{j} columns a step,
-            # rows of n_steps · BO{j} elements (int64 offsets: rows is)
-            params += [f"BO{j}: tl.constexpr" for j in range(no)]
-            body += [f"obase{j} = rows[:, None] * (n_steps * BO{j}) "
-                     f"+ tl.arange(0, BO{j})[None, :]" for j in range(no)]
-            pre = [f"oofs{j} = obase{j} + step * BO{j}" for j in range(no)]
-            store = (lambda j, o: f"tl.store(O{j} + oofs{j}, "
-                                  f"{o}.to(O{j}.dtype.element_ty))")
-        name = "k1_kernel"
+    if not batch:
+        return _solo_source(stages, n_ext, head, fnames, params, ns, nv, no,
+                            ragged)
+    # T: (k_items, nv + no) int64, each item's offset from item 0's
+    # pointer per slot in units of VEC elements (16 bytes)
+    params += ["T", "n_units", "n_steps", "row_len", "items_div",
+               "blocks_per_item", "BR: tl.constexpr", "BC: tl.constexpr",
+               "VEC: tl.constexpr", "NUNIT: tl.constexpr",
+               "RAGGED: tl.constexpr"]
+    body = [
+        "pid = tl.program_id(0)",
+        "item = pid // blocks_per_item",
+        "rb = pid - item * blocks_per_item",
+        "rows = rb.to(tl.int64) * BR + tl.arange(0, BR).to(tl.int64)",
+        "base = rows[:, None] * row_len + tl.arange(0, BC)[None, :]",
+        f"trow = T + item.to(tl.int64) * {nv + no}",
+    ]
+    body += [f"xo{i} = tl.multiple_of(tl.load(trow + {i}) * VEC, VEC)"
+             for i in range(nv)]
+    body += [f"oo{j} = tl.multiple_of(tl.load(trow + {nv + j}) * VEC, "
+             f"VEC)" for j in range(no)]
+    # n_units · NUNIT: NUNIT = VEC when VEC divides n (below 2³¹), so
+    # the mask keeps 16-byte vectors whole
+    body += ["n_valid = n_units * NUNIT",
+             "zero = 0 if RAGGED else None"]
+    load = (lambda i: f"tl.load(X{i} + xo{i} + offs, mask=mask, "
+                      f"other=zero)")
+    store = (lambda j, o: f"tl.store(O{j} + oo{j} + offs, "
+                          f"{o}.to(O{j}.dtype.element_ty), mask=mask)")
     if ns:
-        body.append(f"srow = S + (pid // items_div).to(tl.int64) * {ns}"
-                    if batch else "srow = S")
+        body.append(f"srow = S + (pid // items_div).to(tl.int64) * {ns}")
         body += [f"s{j} = tl.load(srow + {j})" for j in range(ns)]
     body.append("nocarry = tl.zeros((BR, 1), tl.float32)")
     for k, st in enumerate(stages):
         if st.carry_cols:
             body.append(f"c{k} = tl.full((BR, {st.carry_cols}), _CINIT{k}, "
                         f"tl.{dtype_name(st.carry_dtype)})")
-    loop = (["offs = base + step * BC"] + pre
+    loop = (["offs = base + step * BC",
+             "mask = offs < n_valid if RAGGED else None"]
             + _chain_loop(stages, n_ext, fnames, load, store))
-    lines = head + ["@triton.jit", f"def {name}({', '.join(params)}):"]
+    lines = head + ["@triton.jit",
+                    f"def k1_batch_kernel({', '.join(params)}):"]
     lines += ["    " + ln for ln in body]
     lines.append("    for step in range(0, n_steps):")
     lines += ["        " + ln for ln in loop]
@@ -420,42 +503,57 @@ class K1Kernel:
 
     @staticmethod
     def compile(stages: Sequence[Stage], n_ext: Sequence[int],
-                batch: bool = False):
-        """(the chain's ``k1_kernel`` — with ``batch`` its
-        ``k1_batch_kernel`` — JIT function, whether this call generated
-        its module). Triton compiles the function per block shape and
-        dtype at its first launch."""
-        mod, fresh = load_module(kernel_source(stages, n_ext, batch))
+                batch: bool = False, ragged: bool = False):
+        """(the chain's ``k1_kernel`` — with ``ragged`` the one that masks
+        the tail, with ``batch`` its ``k1_batch_kernel`` — JIT function,
+        whether this call generated its module). Triton compiles the
+        function per block shape and dtype at its first launch."""
+        mod, fresh = load_module(kernel_source(stages, n_ext, batch, ragged))
         return (mod.k1_batch_kernel if batch else mod.k1_kernel), fresh
 
     def __call__(self, kernel, table: torch.Tensor,
                  vectors: Sequence[torch.Tensor], n_out: int,
                  block_rows: int, block_cols: int,
                  out_specs=None) -> list[torch.Tensor]:
-        """One ``k1_kernel`` launch. ``out_specs`` (``((shape, dtype
-        name), ...)``) sizes the outputs of a shape-changing stage, each
-        stored ``block_cols · out_cols / cols`` columns a step; without
-        it every output is shaped like the inputs."""
+        """One ``k1_kernel`` launch. ``vectors`` are (rows, cols) operands
+        of whole blocks, or flat operands of ``n`` elements, walked as
+        ⌈n / (block_rows·block_cols)⌉ row blocks of ``block_cols``-element
+        rows (the reference's padded layout) by a kernel compiled to mask
+        the tail past ``n`` when there is one; their outputs are flat
+        tensors of ``n`` elements. ``out_specs`` (``((shape, dtype
+        name), ...)``) sizes the outputs of a shape-changing stage (on
+        flat operands, in their padded layout), each stored ``block_cols ·
+        out_cols / cols`` columns a step; without it every output is
+        shaped like the inputs."""
         v0 = vectors[0]
         check_cuda(list(vectors) + [table])
         for v in vectors:
             if not v.is_contiguous() or v.dtype != v0.dtype:
                 raise ValueError("K1 needs contiguous vector operands of "
                                  "one dtype")
-        rows, cols = v0.shape
+        n = v0.numel()
+        if v0.ndim == 2:
+            rows, cols = v0.shape
+        else:
+            cols = block_cols
+            rows = -(-n // (block_rows * block_cols)) * block_rows
         widths = {}
         if out_specs is None:
             outs = [torch.empty_like(v0) for _ in range(n_out)]
         else:
             outs = _out_tensors(out_specs, v0.device)
             widths = out_block_widths(out_specs, block_cols, cols)
+        if n == 0:
+            return outs
         args = ([table] if table.shape[1] else []) + list(vectors) + outs
-        # 8 warps for an 8×1024 tile (32 elements per thread per operand)
-        warps = 8 if block_rows * block_cols >= 8192 else 4
+        vec = 16 // v0.element_size()
+        nunit = vec if n % vec == 0 and n < 1 << 31 else 1
+        warps = K1_WIDE_WARPS if block_rows * block_cols >= 8192 else 4
         with torch.cuda.device(v0.device):
             kernel[(rows // block_rows,)](
-                *args, cols // block_cols, cols,
-                BR=block_rows, BC=block_cols, num_warps=warps, **widths)
+                *args, n // nunit, cols // block_cols, cols,
+                BR=block_rows, BC=block_cols, NUNIT=nunit, num_warps=warps,
+                **widths)
         self.launches += 1
         return outs
 

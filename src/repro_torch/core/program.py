@@ -78,7 +78,7 @@ from . import artifact as _artifact
 from . import fused_kernel as _fk
 from .burst_model import H100_HBM, BurstModel
 from .stream import (LANES, SMEM_BYTES, StreamConfig, _bits, dtype_name,
-                     flatten_to_blocks, round_up)
+                     round_up)
 from .template import Stage
 
 # Candidate fused block widths (lanes-aligned powers of two). The burst
@@ -695,6 +695,58 @@ class Program:
         outs = launch(table, vectors, items_div)
         return outs[0] if len(outs) == 1 else tuple(outs)
 
+    def call_flat(self, *operands, block_rows: int, block_cols: int,
+                  interpret: bool = False):
+        """Launch once on vector operands of any one shape and dtype, as
+        they lie (the entry path under :meth:`__call__` and the c0
+        instructions).
+
+        Each operand is flattened (a view where it is contiguous) and
+        walked as ⌈n / (block_rows·block_cols)⌉ row blocks of
+        ``block_cols``-element rows — the layout the reference pads it to
+        (``flatten_to_blocks``) — with the tail past its ``n`` elements
+        masked: a load there reads 0, the pad's zeros, and a store is
+        dropped, so nothing is padded and every output holds exactly
+        ``n`` elements, returned in the operands' shape. A shape-changing
+        program's outputs are written whole in that layout (each
+        ``block_cols · out_cols / cols`` columns a step, :meth:`_out_specs`
+        on the padded shape) and, as the reference's entry path returns
+        them, cut to their first ``n`` elements in the operands' shape.
+        ``interpret`` runs the same walk in PyTorch
+        (:func:`~repro_torch.core.fused_kernel.emulate_items` on one
+        item)."""
+        per_stage = self.split_operands(operands)
+        vecs = self._check_vectors(per_stage)
+        scalars = tuple(s for sc, _ in per_stage for s in sc)
+        v0 = vecs[0]
+        flat = [v.reshape(-1).contiguous() for v in vecs]
+        table = _scalar_table([scalars], v0.device)
+        n = v0.numel()
+        blocks = -(-n // (block_rows * block_cols))
+        out_specs = None
+        if not self.stages[-1].shape_preserving:
+            padded = torch.empty((max(1, blocks) * block_rows, block_cols),
+                                 dtype=v0.dtype, device="meta")
+            out_specs = self._out_specs([padded] * len(flat), block_cols)
+        sig = ("flat", block_rows, block_cols, bool(interpret),
+               tuple(table.shape), v0.device.type, dtype_name(v0.dtype),
+               len(flat), n)
+        launch = self._exe_cache.get(sig)
+        if launch is None:
+            DISPATCH_STATS.call_builds += 1
+            with _trace.span("pallas_build", program=self.name,
+                             block=[block_rows, block_cols],
+                             interpret=bool(interpret)):
+                launch = self._build_call(flat, block_rows, block_cols,
+                                          interpret, out_specs=out_specs,
+                                          flat=True)
+            if len(self._exe_cache) >= _EXE_CACHE_MAX:
+                self._exe_cache.pop(next(iter(self._exe_cache)))
+            self._exe_cache[sig] = launch
+        outs = tuple(o.reshape(-1)[:n].reshape(v0.shape)
+                     for o in launch(table, flat, max(1, blocks)))
+        return outs[0] if len(outs) == 1 else outs
+
     def call_items(self, scalar_rows: Sequence[Sequence[Any]],
                    items: Sequence[Sequence[torch.Tensor]], *,
                    block_rows: int, block_cols: int,
@@ -772,11 +824,13 @@ class Program:
         return tuple(specs)
 
     def _build_call(self, vectors, block_rows, block_cols, interpret,
-                    batch: bool = False, out_specs=None):
+                    batch: bool = False, out_specs=None, flat: bool = False):
         """The launch closure for one operand signature (the cold half of
-        :meth:`call_blocks` and :meth:`call_items`): K1, or its plain
-        PyTorch emulator; with ``batch`` the per-item versions.
-        ``out_specs`` (solo launches) sizes the outputs."""
+        :meth:`call_blocks`, :meth:`call_flat` and :meth:`call_items`):
+        K1, or its plain PyTorch emulator; with ``batch`` the per-item
+        versions, with ``flat`` the masked walk of flat operands (the
+        emulator's as one item). ``out_specs`` (solo launches) sizes the
+        outputs."""
         stages, n_ext = self.stages, tuple(self._n_ext)
         if interpret:
             DISPATCH_STATS.kernel_traces += 1
@@ -785,6 +839,11 @@ class Program:
                     return _fk.emulate_items(stages, n_ext, table, vecs,
                                              block_rows, block_cols,
                                              items_div)
+            elif flat:
+                def launch(table, vecs, items_div):
+                    return _fk.emulate_items(stages, n_ext, table, [vecs],
+                                             block_rows, block_cols,
+                                             items_div, out_specs)[0]
             else:
                 def launch(table, vecs, items_div):
                     return _fk.emulate(stages, n_ext, table, vecs,
@@ -794,9 +853,11 @@ class Program:
         if self.stages[-1].shape_preserving:
             out_specs = None                # every output shaped as the inputs
         elif not batch:
-            _fk.out_block_widths(out_specs, block_cols, vectors[0].shape[1])
+            _fk.out_block_widths(out_specs, block_cols,
+                                 block_cols if flat else vectors[0].shape[1])
         _fk.check_cuda(vectors)
-        kernel, fresh = _fk.K1.compile(stages, n_ext, batch)
+        ragged = flat and vectors[0].numel() % (block_rows * block_cols) != 0
+        kernel, fresh = _fk.K1.compile(stages, n_ext, batch, ragged)
         DISPATCH_STATS.kernel_traces += fresh
         n_out = self.n_vec_out
         if batch:
@@ -891,9 +952,10 @@ class Program:
             hook(self, n, dtype_name(dtype), dt, n_items)
 
     def __call__(self, *operands, interpret: bool = False):
-        """The shared streaming entry path: normalise arbitrary-shaped
-        vector operands to padded 2D blocks, negotiate the fused geometry,
-        launch once, restore the caller's shapes."""
+        """The shared streaming entry path: negotiate the fused geometry
+        for arbitrary-shaped vector operands and launch once on them as
+        they lie (:meth:`call_flat`: the tail past ``n`` masked, nothing
+        padded). Returns the caller's shapes."""
         t0 = time.perf_counter() if _OBSERVED_HOOKS else None
         per_stage = self.split_operands(operands)
         flat_vecs = self._check_vectors(per_stage)
@@ -906,17 +968,9 @@ class Program:
             block_rows, block_cols = self._resolve_geometry(n, ref_v.dtype)
             if _sp is not None:
                 _sp.attrs["block"] = [block_rows, block_cols]
-            norm = []
-            for sc, ext in per_stage:
-                norm.extend(sc)
-                norm.extend(flatten_to_blocks(v, block_cols, block_rows)[0]
-                            for v in ext)
-            out = self.call_blocks(*norm, block_rows=block_rows,
-                                   block_cols=block_cols,
-                                   interpret=interpret)
-        outs = out if isinstance(out, tuple) else (out,)
-        outs = tuple(o.reshape(-1)[:n].reshape(ref_v.shape) for o in outs)
-        result = outs[0] if len(outs) == 1 else outs
+            result = self.call_flat(*operands, block_rows=block_rows,
+                                    block_cols=block_cols,
+                                    interpret=interpret)
         if t0 is not None:
             self._notify_observed([result], n, ref_v.dtype, t0, 1)
         return result

@@ -131,13 +131,17 @@ def load(stem: str, signatures: dict[str, tuple]) -> ctypes.CDLL:
     lib = _LOADED.get(stem)
     if lib is None:
         lib = ctypes.CDLL(str(build_all([stem])[0]))
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _LOADED[stem] = lib
+    # each caller's launchers (one source may serve several wrappers, as
+    # prefix_scan.cu serves K3 and K4): without argtypes ctypes would
+    # pass every int as 32 bits and cut the pointers
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -439,6 +439,429 @@ int launch(const void* x, void* out, int64_t rows, int64_t cols,
 
 }  // namespace
 
+// ===========================================================================
+// K4 — c4_chunkscan / c4_statescan, the affine carried scan
+//   y[c] = a[c]·y[c−1] + b[c], y[−1] = 0, along the chunks
+// ===========================================================================
+//
+// Replaces the Pallas kernel
+//   K4  src/repro/kernels/prefix_scan.py  chunk_scan_pallas  (_chunk_body)
+// which walks each row's column blocks in grid order, scans a block with
+// an affine Hillis–Steele network and carries y's last column in VMEM.
+//
+// What bounds it on the H100: device-memory bytes (the states read once
+// and written once; two operations an element). The recurrence is the
+// same two operations whatever the order, so a thread folds its own
+// payload elements along the chunks in registers: no tree, no shared-
+// memory transpose. The fold is the recurrence as the reference's oracle
+// defines it (src/repro/kernels/ref.py, chunk_scan), one product and one
+// add an element, each rounded in the output type T (no FMA contraction:
+// __fmul_rn / __fadd_rn), the order torch evaluates a * y + b in, so the
+// plain walk (prefix_scan.chunk_scan_plain up to 64 columns,
+// state_scan_plain) is the kernel's result bit for bit.
+//
+// Two entries, one fold:
+//  * k4_state_kernel, on the SSD states where they lie (c4_statescan):
+//    group g = (o, ai) is `rows` contiguous payload elements that share
+//    one decay a[o, c, ai] per chunk, its chunk c at stride `inner`.
+//    A thread owns VEC contiguous payload elements (16 or 8 bytes, as the
+//    wrapper's state_walk chooses), neighbouring threads neighbouring
+//    vectors, so each chunk's loads and stores are coalesced as they lie;
+//    a group's threads are whole warps. The thread keeps a ring of R
+//    chunks' loads in flight (R = RING_BYTES of each operand it loads, at
+//    least 4: at K's 8 chunks every load is issued before the walk; a
+//    ring of 8 16-byte loads at G's 32): the loads of step j + R are
+//    issued before step j is folded and stored, so loads and stores
+//    stream together.
+//    No shared memory and no barrier: a chunk's decay is a warp-uniform
+//    load (one transaction a warp, then L1).
+//    With DA (the reverse walk of the backward) it also loads y[c−1], the
+//    forward's output, and reduces λ[c]·y[c−1] over the warp's elements:
+//    each thread its VEC products in order, the warp by an xor butterfly
+//    of shuffles; one partial per warp per (group, chunk), no atomics.
+//    k4_da_kernel sums a decay's partials in a fixed order (warps, then
+//    chunks and groups where the decay is shared along them), so da is
+//    the same bits on every run, and prefix_scan.state_da_plain is the
+//    same reduction in torch.
+//  * k4_rows_kernel, on (rows, cols) operands (c4_chunkscan) of at most
+//    FOLD_COLS columns: a lane a row, a warp's 32 rows moved through
+//    shared memory in 16-byte chunks (coalesced, the chunks swizzled so
+//    that the lanes' walks along their rows hit distinct banks). Up to
+//    FOLD_COLS columns (every chunk count of the model paths) the two
+//    entries are one fold, bit for bit. Longer rows take the former
+//    Gluon kernel of prefix_scan.py: a fold of segments a thread
+//    (experiments/k4_rows_fold.cu) was slower there (PERF.md).
+// REVERSE walks the chunks (columns) from the last one: step j of the walk
+// reads and writes chunk cols−1−j, decays included, in the same order.
+
+namespace k4 {
+
+template <typename T> struct Acc4 { using type = float; };
+template <> struct Acc4<double> { using type = double; };
+
+__device__ __forceinline__ float fold(float a, float y, float b) {
+  return __fadd_rn(__fmul_rn(a, y), b);
+}
+__device__ __forceinline__ double fold(double a, double y, double b) {
+  return __dadd_rn(__dmul_rn(a, y), b);
+}
+__device__ __forceinline__ __nv_bfloat16 fold(__nv_bfloat16 a,
+                                              __nv_bfloat16 y,
+                                              __nv_bfloat16 b) {
+  const __nv_bfloat16 p = __float2bfloat16_rn(
+      __fmul_rn(__bfloat162float(a), __bfloat162float(y)));
+  return __float2bfloat16_rn(
+      __fadd_rn(__bfloat162float(p), __bfloat162float(b)));
+}
+__device__ __forceinline__ __half fold(__half a, __half y, __half b) {
+  const __half p = __float2half_rn(__fmul_rn(__half2float(a),
+                                             __half2float(y)));
+  return __float2half_rn(__fadd_rn(__half2float(p), __half2float(b)));
+}
+
+__device__ __forceinline__ float mul_acc(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_acc(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_acc(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_acc(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <int BYTES> struct Raw;
+template <> struct Raw<16> { using type = uint4; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<2> { using type = unsigned short; };
+
+// VEC contiguous elements moved as one 16-, 8-, 4- or 2-byte access
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_stream(const T* p) {
+  using R = typename Raw<sizeof(T) * VEC>::type;
+  const R r = __ldcs(reinterpret_cast<const R*>(p));   // read once: evict first
+  Pack<T, VEC> out;
+  *reinterpret_cast<R*>(&out) = r;
+  return out;
+}
+
+template <typename T, int VEC>
+__device__ __forceinline__ void store(T* p, const Pack<T, VEC>& x) {
+  *reinterpret_cast<Pack<T, VEC>*>(p) = x;
+}
+
+constexpr int STATE_THREADS = 256;
+constexpr int RING_BYTES = 128;   // of each operand in a thread's ring
+
+// The state walk's ring depth: RING_BYTES of each operand a thread loads
+// (the states; with DA y too), 4 to 32 chunks (prefix_scan.state_walk).
+template <typename T, int VEC, bool DA>
+constexpr int ring_depth() {
+  constexpr int r = RING_BYTES / (VEC * (int)sizeof(T) * (DA ? 2 : 1));
+  return r < 4 ? 4 : (r > 32 ? 32 : r);
+}
+
+// One thread: VEC payload elements of group g = t / sp (sp: the group's
+// vector slots rounded up to whole warps, so every warp lies in one
+// group), all its chunks in walk order. A ring of R chunks' loads (and
+// decays; with DA also y[c−1]) is in flight: the loads of step j + R are
+// issued before step j is folded, so a thread never waits on the chunk
+// it just stored. No shared memory and no barrier: a chunk's decay is
+// one warp-uniform load (a broadcast, then L1).
+// partials (DA): (groups, cols, sp / 32) in the accumulator type, one a
+// warp: its lanes' λ[c]·y[c−1] summed by an xor butterfly.
+template <typename T, int VEC, int R, bool DA>
+__global__ void __launch_bounds__(STATE_THREADS)
+k4_state_kernel(const T* __restrict__ a, const T* __restrict__ s,
+                T* __restrict__ out, const T* __restrict__ y,
+                typename Acc4<T>::type* __restrict__ partials,
+                int64_t threads, int64_t sp, int64_t slots, int64_t rows,
+                int64_t cols, int64_t inner, int64_t a_in, int64_t a_div,
+                int64_t a_outer, int64_t a_col, int reverse) {
+  using A = typename Acc4<T>::type;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= threads) return;                  // whole warps: sp % 32 == 0
+  const int lane = threadIdx.x & 31;
+  const int64_t g = t / sp, slot = t % sp;
+  const bool active = slot < slots;
+  const int64_t o = g / a_in, ai = g % a_in;
+  const int64_t base = o * cols * inner + ai * rows + slot * VEC;
+  const T* a_g = a + (o / a_div) * a_outer + ai;
+  Pack<T, VEC> v[R];
+  Pack<T, VEC> yp[DA ? R : 1];
+  T dec[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) {              // the ring's first R chunks
+    if (k < cols) {
+      const int64_t p = reverse ? cols - 1 - k : k;
+      dec[k] = a_g[p * a_col];
+      if (active) {
+        v[k] = load_stream<T, VEC>(s + base + p * inner);
+        if constexpr (DA) {
+          if (p >= 1) yp[k] = load_stream<T, VEC>(y + base + (p - 1) * inner);
+        }
+      }
+    }
+  }
+  Pack<T, VEC> carry;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) carry.v[e] = T(0.0f);
+  for (int64_t c0 = 0; c0 < cols; c0 += R) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int64_t j = c0 + k;
+      if (j < cols) {                        // uniform in the grid
+        const int64_t p = reverse ? cols - 1 - j : j;
+        const Pack<T, VEC> cur = v[k];
+        const T dk = dec[k];
+        Pack<T, VEC> yc;
+        if constexpr (DA) yc = yp[k];
+        const int64_t jn = j + R;            // refill the slot: step j + R
+        if (jn < cols) {
+          const int64_t pn = reverse ? cols - 1 - jn : jn;
+          dec[k] = a_g[pn * a_col];
+          if (active) {
+            v[k] = load_stream<T, VEC>(s + base + pn * inner);
+            if constexpr (DA) {
+              if (pn >= 1)
+                yp[k] = load_stream<T, VEC>(y + base + (pn - 1) * inner);
+            }
+          }
+        }
+        A part = A(0);
+        if (active) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            carry.v[e] = fold(dk, carry.v[e], cur.v[e]);
+          store<T, VEC>(out + base + p * inner, carry);
+          if constexpr (DA) {
+            if (p >= 1) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e)
+                part = add_acc(part, mul_acc(A(carry.v[e]), A(yc.v[e])));
+            }
+          }
+        }
+        if constexpr (DA) {
+#pragma unroll
+          for (int d = 16; d >= 1; d >>= 1)
+            part = add_acc(part, __shfl_xor_sync(0xffffffffu, part, d));
+          if (lane == 0) partials[(g * cols + p) * (sp / 32) + slot / 32] = part;
+        }
+      }
+    }
+  }
+}
+
+// da[e] of each decay element e from the partials (wpg a (group, chunk):
+// one a warp), in a fixed order: per_chunk (the decay varies along the
+// chunks: e = (o, p, ai), one (group, chunk) each) over the warps; else
+// (the decay is shared by a_div consecutive groups and all chunks,
+// a_in = 1) over the groups, the chunks and the warps.
+template <typename T>
+__global__ void k4_da_kernel(const typename Acc4<T>::type* __restrict__ part,
+                             T* __restrict__ da, int64_t n_e, int64_t cols,
+                             int64_t a_in, int64_t a_div, int64_t wpg,
+                             int per_chunk) {
+  using A = typename Acc4<T>::type;
+  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n_e) return;
+  A sum = A(0);
+  if (per_chunk) {
+    const int64_t o = e / (cols * a_in), p = (e / a_in) % cols,
+                  ai = e % a_in;
+    const A* q = part + ((o * a_in + ai) * cols + p) * wpg;
+    for (int64_t w = 0; w < wpg; ++w) sum = add_acc(sum, q[w]);
+  } else {
+    const A* q = part + e * a_div * cols * wpg;
+    for (int64_t i = 0; i < a_div * cols * wpg; ++i) sum = add_acc(sum, q[i]);
+  }
+  da[e] = from_acc<T>(sum);
+}
+
+constexpr int FOLD_COLS = 64;      // prefix_scan.K4_FOLD_COLS
+
+template <typename T, int VEC>
+__device__ __forceinline__ Pack<T, VEC> load_pack(const T* p) {
+  return *reinterpret_cast<const Pack<T, VEC>*>(p);
+}
+
+// (rows, cols) operands of at most FOLD_COLS columns: a warp a block, 32
+// rows; a lane folds its row. The warp's rows move through shared memory
+// in chunks of VEC elements (16 bytes where the rows allow): coalesced
+// loads, BATCH chunks a lane in flight, into a row pitch of `pitch`
+// chunks (a power of two), chunk q of row r at r·pitch + (q ^ r mod
+// pitch), so that the lanes' walks along their rows hit distinct banks;
+// each lane's results go back over its b chunks, then coalesced stores.
+template <typename T, int VEC, bool REV>
+__global__ void __launch_bounds__(32)
+k4_rows_kernel(const T* __restrict__ a, const T* __restrict__ b,
+               T* __restrict__ out, int64_t rows, int cols,
+               int64_t stride_a, int64_t stride_b, int pitch) {
+  using P = Pack<T, VEC>;
+  constexpr int BATCH = 8;
+  extern __shared__ __align__(16) unsigned char k4_rows_smem[];
+  P* sa = reinterpret_cast<P*>(k4_rows_smem);
+  P* sb = sa + 32 * pitch;
+  const int lane = threadIdx.x, mask = pitch - 1;
+  const int64_t row0 = (int64_t)blockIdx.x * 32;
+  const int nr = (int)min((int64_t)32, rows - row0);
+  const int cpr = cols / VEC, nch = nr * cpr;
+  for (int f0 = 0; f0 < nch; f0 += 32 * BATCH) {
+    P ra[BATCH], rb[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int f = f0 + i * 32 + lane;
+      if (f < nch) {
+        const int r = f / cpr, q = f - r * cpr;
+        ra[i] = load_pack<T, VEC>(a + (row0 + r) * stride_a + q * VEC);
+        rb[i] = load_pack<T, VEC>(b + (row0 + r) * stride_b + q * VEC);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int f = f0 + i * 32 + lane;
+      if (f < nch) {
+        const int r = f / cpr, q = f - r * cpr;
+        sa[r * pitch + (q ^ (r & mask))] = ra[i];
+        sb[r * pitch + (q ^ (r & mask))] = rb[i];
+      }
+    }
+  }
+  __syncwarp();
+  if (lane < nr) {
+    T carry = T(0.0f);
+    const int base = lane * pitch, sw = lane & mask;
+#pragma unroll 4
+    for (int j = 0; j < cpr; ++j) {
+      const int at = base + ((REV ? cpr - 1 - j : j) ^ sw);
+      const P x = sa[at];
+      P y = sb[at];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int ee = REV ? VEC - 1 - e : e;
+        carry = fold(x.v[ee], carry, y.v[ee]);
+        y.v[ee] = carry;
+      }
+      sb[at] = y;
+    }
+  }
+  __syncwarp();
+  for (int f = lane; f < nch; f += 32) {
+    const int r = f / cpr, q = f - r * cpr;
+    store<T, VEC>(out + (row0 + r) * cols + q * VEC,
+                  sb[r * pitch + (q ^ (r & mask))]);
+  }
+}
+
+template <typename T, int VEC, bool DA>
+int launch_state_v(const void* a, const void* s, void* out, const void* y,
+                   void* partials, int64_t groups, int64_t sp, int64_t rows,
+                   int64_t cols, int64_t inner, int64_t a_in, int64_t a_div,
+                   int64_t a_outer, int64_t a_col, int reverse,
+                   cudaStream_t st) {
+  const int64_t threads = groups * sp;
+  const int64_t blocks = (threads + STATE_THREADS - 1) / STATE_THREADS;
+  if (blocks >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  k4_state_kernel<T, VEC, ring_depth<T, VEC, DA>(), DA>
+      <<<(unsigned)blocks, STATE_THREADS, 0, st>>>(
+          (const T*)a, (const T*)s, (T*)out, (const T*)y,
+          (typename Acc4<T>::type*)partials, threads, sp, rows / VEC, rows,
+          cols, inner, a_in, a_div, a_outer, a_col, reverse);
+  return (int)cudaGetLastError();
+}
+
+// vec: 16 or 8 bytes of T, or one element (prefix_scan.state_walk's)
+template <typename T, bool DA>
+int launch_state(int vec, const void* a, const void* s, void* out,
+                 const void* y, void* partials, int64_t groups, int64_t sp,
+                 int64_t rows, int64_t cols, int64_t inner, int64_t a_in,
+                 int64_t a_div, int64_t a_outer, int64_t a_col, int reverse,
+                 cudaStream_t st) {
+  constexpr int V16 = 16 / (int)sizeof(T), V8 = 8 / (int)sizeof(T);
+#define K4_VEC(V)                                                           \
+  return launch_state_v<T, V, DA>(a, s, out, y, partials, groups, sp, rows, \
+                                  cols, inner, a_in, a_div, a_outer, a_col, \
+                                  reverse, st)
+  if (vec == V16) K4_VEC(V16);
+  if constexpr (V8 > 1) {
+    if (vec == V8) K4_VEC(V8);
+  }
+  if (vec == 1) K4_VEC(1);
+#undef K4_VEC
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int launch_state_t(int da, int vec, const void* a, const void* s, void* out,
+                   const void* y, void* partials, int64_t groups, int64_t sp,
+                   int64_t rows, int64_t cols, int64_t inner, int64_t a_in,
+                   int64_t a_div, int64_t a_outer, int64_t a_col,
+                   int reverse, cudaStream_t st) {
+  if (rows % vec || sp % 32 || sp * vec < rows)
+    return (int)cudaErrorInvalidValue;
+  if (da && !(y && partials)) return (int)cudaErrorInvalidValue;
+  return da ? launch_state<T, true>(vec, a, s, out, y, partials, groups, sp,
+                                    rows, cols, inner, a_in, a_div, a_outer,
+                                    a_col, reverse, st)
+            : launch_state<T, false>(vec, a, s, out, y, partials, groups,
+                                     sp, rows, cols, inner, a_in, a_div,
+                                     a_outer, a_col, reverse, st);
+}
+
+// vec: 16 bytes of T (cols, both row strides and both pointers aligned
+// to it; prefix_scan's ChunkScanKernel checks) or one element; at most
+// FOLD_COLS columns (longer rows take the Gluon kernel of prefix_scan.py)
+template <typename T>
+int launch_rows(int vec, const void* a, const void* b, void* out,
+                int64_t rows, int64_t cols, int64_t stride_a,
+                int64_t stride_b, int reverse, cudaStream_t st) {
+  constexpr int V16 = 16 / (int)sizeof(T);
+  if (cols > FOLD_COLS || (vec != V16 && vec != 1) ||
+      (vec == V16 && (cols % V16 || stride_a % V16 || stride_b % V16)))
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (rows + 31) / 32;
+  if (blocks >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  int pitch = 1;
+  while (pitch < cols / vec) pitch *= 2;
+#define K4_ROWS(V, R)                                                       \
+  k4_rows_kernel<T, V, R><<<(unsigned)blocks, 32,                           \
+                            2 * 32 * pitch * sizeof(Pack<T, V>), st>>>(     \
+      (const T*)a, (const T*)b, (T*)out, rows, (int)cols, stride_a,         \
+      stride_b, pitch)
+  if (vec == V16) {
+    if (reverse) K4_ROWS(V16, true);
+    else K4_ROWS(V16, false);
+  } else if constexpr (V16 > 1) {
+    if (reverse) K4_ROWS(1, true);
+    else K4_ROWS(1, false);
+  }
+#undef K4_ROWS
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_da(const void* part, void* da, int64_t n_e, int64_t cols,
+              int64_t a_in, int64_t a_div, int64_t wpg, int per_chunk,
+              cudaStream_t st) {
+  const int64_t blocks = (n_e + 255) / 256;
+  if (blocks >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  k4_da_kernel<T><<<(unsigned)blocks, 256, 0, st>>>(
+      (const typename Acc4<T>::type*)part, (T*)da, n_e, cols, a_in, a_div,
+      wpg, per_chunk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace k4
+
 // *words: how many zeroed 8-byte words k3_prefix_sum needs as scratch for
 // a (rows, cols) operand (0: it may be null).
 extern "C" int k3_scratch_words(int64_t rows, int64_t cols, int64_t* words) {
@@ -461,6 +884,86 @@ extern "C" int k3_prefix_sum(int dtype, const void* x, void* out,
     case 2:
       return launch<__nv_bfloat16>(x, out, rows, cols, stride, scratch, s);
     case 3: return launch<__half>(x, out, rows, cols, stride, scratch, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4 on (rows, cols) operands of at most 64 columns, a and b of one
+// dtype with row strides stride_a, stride_b (elements) and a unit column
+// stride; out contiguous. vec: 16 bytes of elements or 1 (launch_rows).
+// dtype codes as K3's.
+extern "C" int k4_chunk_scan(int dtype, const void* a, const void* b,
+                             void* out, int64_t rows, int64_t cols,
+                             int64_t stride_a, int64_t stride_b, int vec,
+                             int reverse, void* stream) {
+  if (rows < 0 || cols < 0 || stride_a < 0 || stride_b < 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0 || cols == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define K4_ARGS vec, a, b, out, rows, cols, stride_a, stride_b, reverse, s
+  switch (dtype) {
+    case 0: return k4::launch_rows<float>(K4_ARGS);
+    case 1: return k4::launch_rows<double>(K4_ARGS);
+    case 2: return k4::launch_rows<__nv_bfloat16>(K4_ARGS);
+    case 3: return k4::launch_rows<__half>(K4_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K4_ARGS
+}
+
+// K4 on the states where they lie (prefix_scan.state_scan_map's walk):
+// groups × rows payload elements, chunk c of group (o, ai) at
+// (o·cols + c)·inner + ai·rows, its decay at (o / a_div)·a_outer + ai +
+// c·a_col. vec, sp (a group's vector slots, whole warps):
+// prefix_scan.state_walk's. da: the reverse walk of the backward also
+// reads y (the forward's output) and writes partials (groups × cols ×
+// sp / 32 accumulators, one a warp) for k4_da_sum.
+extern "C" int k4_state_scan(int dtype, const void* a, const void* s,
+                             void* out, const void* y, void* partials,
+                             int64_t groups, int64_t rows, int64_t cols,
+                             int64_t inner, int64_t a_in, int64_t a_div,
+                             int64_t a_outer, int64_t a_col, int vec,
+                             int64_t sp, int reverse, int da,
+                             void* stream) {
+  if (groups < 0 || rows < 0 || cols < 0 || a_in < 1 || a_div < 1 ||
+      vec < 1 || sp < 0)
+    return (int)cudaErrorInvalidValue;
+  if (groups == 0 || rows == 0 || cols == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define K4_ARGS                                                             \
+  da, vec, a, s, out, y, partials, groups, sp, rows, cols, inner, a_in,     \
+      a_div, a_outer, a_col, reverse, st
+  switch (dtype) {
+    case 0: return k4::launch_state_t<float>(K4_ARGS);
+    case 1: return k4::launch_state_t<double>(K4_ARGS);
+    case 2: return k4::launch_state_t<__nv_bfloat16>(K4_ARGS);
+    case 3: return k4::launch_state_t<__half>(K4_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef K4_ARGS
+}
+
+// da (n_e decay elements, the decay's dtype) from k4_state_scan's
+// partials (wpg a (group, chunk)); per_chunk: the decay varies along the
+// chunks.
+extern "C" int k4_da_sum(int dtype, const void* partials, void* da,
+                         int64_t n_e, int64_t cols, int64_t a_in,
+                         int64_t a_div, int64_t wpg, int per_chunk,
+                         void* stream) {
+  if (n_e < 0 || cols < 1 || a_in < 1 || a_div < 1 || wpg < 1)
+    return (int)cudaErrorInvalidValue;
+  if (n_e == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0: return k4::launch_da<float>(partials, da, n_e, cols, a_in, a_div,
+                                        wpg, per_chunk, st);
+    case 1: return k4::launch_da<double>(partials, da, n_e, cols, a_in,
+                                         a_div, wpg, per_chunk, st);
+    case 2: return k4::launch_da<__nv_bfloat16>(partials, da, n_e, cols,
+                                                a_in, a_div, wpg, per_chunk,
+                                                st);
+    case 3: return k4::launch_da<__half>(partials, da, n_e, cols, a_in,
+                                         a_div, wpg, per_chunk, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

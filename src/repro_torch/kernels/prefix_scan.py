@@ -20,37 +20,53 @@ while the current one is scanned. Both sum in an order of their own:
 :func:`k3_bound_constants` gives the constants of its first-order error
 bound.
 
-**K4** (:data:`K4`, replaces ``chunk_scan_pallas``) is Gluon (Triton
-with explicit register layouts), one program per block of ``br`` rows
-that walks its row's column blocks of ``bc`` in order with the carry in
-registers, set to 0 before the loop (the TPU kernel's carry in VMEM
-scratch across a sequential grid axis, reset at step 0, becomes that
-loop): per block ``associative_scan`` of (a, b) under the affine
-combine, then ``y = A·carry + B``; the carry is y's last column. The
-output and the carry are ``promote(a, b)``. Its state-scan entry
-(``k4_state_scan``, :meth:`ChunkScanKernel.state_scan`; c4_statescan,
-Mamba2's inter-chunk recurrence) walks the same rows in the same blocks
-without moving them: a program takes ``br`` contiguous payload elements
-of one (batch, head) group of the (B, C, H, P, N) states, its columns
-the C chunks at stride H·P·N, and each column's decay ``a[b, c, h]``
-loaded once at the decay's own rank. The reference instead broadcasts
-the decay to the states' rank and moves the chunk axis last, two copies
-the size of the states. The entry loads and stores along the contiguous
-payload rows and converts each tile, through shared memory, to the
-layout both entries scan in (:func:`scan_layout`). A scan's combine
-order follows its layout, so one stated layout and one block body
-(``_scan_block``) make the entry K4's result bit for bit.
+**K4** (:data:`K4`, replaces ``chunk_scan_pallas``) has two entries.
+Its state-scan entry (``k4_state_kernel`` in ``csrc/prefix_scan.cu``,
+beside K3; :meth:`ChunkScanKernel.state_scan`; c4_statescan, Mamba2's
+inter-chunk recurrence) is CUDA C++: the recurrence y[c] = a[c]·y[c−1]
++ b[c] folded in order along the chunks, one thread per payload element
+or 16- or 8-byte vector of them, the carry in registers (the TPU
+kernel's carry in VMEM scratch across a sequential grid axis, reset at
+step 0, becomes that walk). Each step is one product and one add, each
+rounded in ``promote(a, b)`` — the reference oracle's recurrence, in
+the order torch evaluates ``a * y + b`` — so :func:`state_scan_plain` is
+the kernel's result bit for bit. It reads the (B, C, H, P, N) states
+where they lie: a group of ``rows`` contiguous payload elements shares
+one decay ``a[b, c, h]`` a chunk, a warp-uniform load; a thread keeps a
+ring of chunks' loads in flight, issued before the chunk ahead of them
+is folded (:func:`state_walk` chooses the vector width). Its reverse
+walk with the forward's output (:meth:`ChunkScanKernel.state_scan_grad`,
+the backward) also reduces λ[c]·y[c−1] over each warp's payload into one
+partial per (warp, chunk), and a second launch sums the partials in a
+fixed order: da without the product at the states' size, the same bits
+on every run (:func:`state_da_plain` is that reduction in torch).
+:func:`k4_bound_steps` gives the fold's error bound.
+
+Its contiguous-rows entry (c4_chunkscan, ``ChunkScanFn``) folds rows of
+up to :data:`K4_FOLD_COLS` columns, every chunk count of the model
+paths, in CUDA C++ too (``k4_rows_kernel``: a lane a row, a warp's rows
+moved through shared memory in coalesced 16-byte chunks), so there the
+two entries are one fold, bit for bit. Longer rows keep the former
+design, Gluon (Triton with explicit register layouts): one program per
+block of ``br`` rows walks its rows' column blocks of ``bc`` in order
+with the carry in registers, per block ``associative_scan`` of (a, b)
+under the affine combine, then ``y = A·carry + B``. A fold of segments
+a thread (``experiments/k4_rows_fold.cu``) was slower there (PERF.md).
+:func:`k4_rows_bound_steps` gives each route's error bound.
 
 What bounds them on the H100: device-memory bytes (each input read once,
 the output written once; a scan does one or two operations per element).
 Ragged rows and columns are masked (a load past the edge reads the
-combine's identity), so nothing is padded: the reference pads rows to 8,
-a TPU sublane rule that would cost 8× the bytes of a one-row operand.
+combine's identity), so nothing is padded: the reference pads rows to
+8, a TPU sublane rule that would cost 8× the bytes of a one-row
+operand.
 
-:func:`prefix_sum_plain` and :func:`chunk_scan_plain` are the plain
-PyTorch versions of the same blocked walk (Hillis–Steele inside each
-``bc`` block, the carry across blocks, reset per row), which
-``interpret`` mode runs on any device.
+:func:`prefix_sum_plain` is the plain PyTorch version of K3's blocked
+walk (Hillis–Steele inside each ``bc`` block, the carry across blocks,
+reset per row), :func:`chunk_scan_plain` of K4's rows entry (the fold,
+or the Gluon kernel's blocked walk past :data:`K4_FOLD_COLS` columns)
+and :func:`state_scan_plain` of its state-scan entry; ``interpret`` mode
+runs them on any device.
 """
 from __future__ import annotations
 
@@ -65,13 +81,14 @@ from . import _cuda
 from .ref import chunk_scan as _affine_scan
 from .ref import shifted
 
-TILE_ELEMS = 4096            # elements of a K4 program's (br, bc) block,
+TILE_ELEMS = 4096            # elements of a K4 rows block (br, bc),
 #                              columns of a K3 tile
 
 
 def block_shape(rows: int, cols: int) -> tuple[int, int]:
-    """The (br, bc) block K3/K4 use for a (rows, cols) operand: the whole
-    row up to 4096 columns, and as many rows as fill 4096 elements."""
+    """The (br, bc) block K3 and K4's rows entry use for a (rows, cols)
+    operand: the whole row up to 4096 columns, and as many rows as fill
+    4096 elements."""
     bc = min(1 << max(cols - 1, 0).bit_length(), TILE_ELEMS)
     br = min(1 << max(rows - 1, 0).bit_length(), TILE_ELEMS // bc)
     return br, bc
@@ -121,18 +138,38 @@ def prefix_sum_plain(x: torch.Tensor, bc: int) -> torch.Tensor:
     return (hs + carry[:, :, None]).reshape(rows, -1)[:, :cols]
 
 
-def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor, bc: int,
+#: Rows of at most this many columns K4's rows entry folds as the state
+#: entry folds its chunks (``FOLD_COLS`` in ``csrc/prefix_scan.cu``);
+#: longer rows take the Gluon kernel.
+K4_FOLD_COLS = 64
+
+
+def chunk_scan_plain(a: torch.Tensor, b: torch.Tensor, bc: int | None = None,
                      reverse: bool = False) -> torch.Tensor:
-    """K4's blocked walk in torch eager: the affine Hillis–Steele inside
-    each block, then y = A·carry + B with the carry = the previous
-    block's last y (y before the row's first block = 0). ``reverse``
-    walks each row from its last column, as K4's ``REVERSE`` does: the
-    same walk on the columns in reverse order."""
+    """K4's rows entry in torch eager. Up to :data:`K4_FOLD_COLS`
+    columns the fold y[:, c] = a[:, c]·y[:, c−1] + b[:, c] (y before the
+    row's first column = 0), one product and one add a step, each
+    rounded in ``promote(a, b)``: ``k4_rows_kernel``'s result bit for
+    bit. Longer rows: the Gluon kernel's blocked walk, the affine
+    Hillis–Steele inside each block of ``bc`` columns (default
+    :func:`block_shape`'s), then y = A·carry + B with the carry = the
+    previous block's last y. ``reverse`` walks each row from its last
+    column, as K4's does: the same walk on the columns in reverse
+    order."""
     if reverse:
         return chunk_scan_plain(a.flip(1), b.flip(1), bc).flip(1)
     rows, cols = a.shape
     dt = torch.promote_types(a.dtype, b.dtype)
-    acum, bcum = _affine_hs(_blocks(a.to(dt), bc, 1), _blocks(b.to(dt), bc, 0))
+    a, b = a.to(dt), b.to(dt)
+    if cols <= K4_FOLD_COLS:
+        out = torch.empty(a.shape, dtype=dt, device=a.device)
+        y = torch.zeros(rows, dtype=dt, device=a.device)
+        for c in range(cols):
+            y = a[:, c] * y + b[:, c]
+            out[:, c] = y
+        return out
+    bc = bc or block_shape(rows, cols)[1]
+    acum, bcum = _affine_hs(_blocks(a, bc, 1), _blocks(b, bc, 0))
     # the carry into each block: the affine scan of the blocks' totals
     last = _affine_scan(acum[:, :, -1], bcum[:, :, -1])
     carry = shifted(last, 1, 1, 0)
@@ -174,36 +211,130 @@ def state_scan_map(a: torch.Tensor, states: torch.Tensor, axis: int):
 
 def state_scan_plain(a: torch.Tensor, states: torch.Tensor,
                      axis: int, reverse: bool = False) -> torch.Tensor:
-    """K4's state-scan entry in torch eager: the rows of
-    :func:`state_scan_map`'s groups, with their decays gathered by the
-    kernel's own index, through :func:`chunk_scan_plain` at the block
-    K4 uses, and back into the states' layout. ``reverse`` walks the
-    chunks from the last one (states and decays), as ``REVERSE`` does."""
+    """K4's state-scan entry in torch eager: the fold y[c] = a[c]·y[c−1]
+    + b[c] (y[−1] = 0), one product and one add a step, each rounded in
+    ``promote(a, states)``, on every payload element of
+    :func:`state_scan_map`'s groups, each chunk's decay gathered by the
+    kernel's own index, in the states' layout. ``reverse`` walks the
+    chunks from the last one (states and decays), as ``reverse`` does."""
     dt = torch.promote_types(a.dtype, states.dtype)
-    a, w = state_scan_map(a, states, axis)
-    if reverse:
-        ax = axis % states.ndim
-        a = a.flip(ax) if ax < a.ndim else a
-        return state_scan_plain(a, states.flip(ax), axis).flip(ax)
+    a, w = state_scan_map(a.to(dt), states, axis)
     outer, cols, a_in, rows = w["outer"], w["cols"], w["a_in"], w["rows"]
+    out = torch.empty(states.shape, dtype=dt, device=states.device)
     if states.numel() == 0:
-        return torch.empty(states.shape, dtype=dt, device=states.device)
-    dev = states.device
-    o = torch.arange(outer, device=dev)[:, None, None]
-    c = torch.arange(cols, device=dev)[None, :, None]
-    ai = torch.arange(a_in, device=dev)[None, None, :]
-    idx = (o // w["a_div"]) * w["a_outer"] + ai + c * w["a_col"]
-    ag = a.reshape(-1)[idx]                          # (outer, cols, a_in)
-    ra = ag.permute(0, 2, 1)[:, :, None, :].expand(outer, a_in, rows, cols)
-    rb = states.reshape(outer, cols, a_in, rows).permute(0, 2, 3, 1)
-    bc = block_shape(states.numel() // cols, cols)[1]
-    out = chunk_scan_plain(ra.reshape(-1, cols), rb.reshape(-1, cols), bc)
-    return out.reshape(outer, a_in, rows, cols).permute(0, 3, 1, 2).reshape(
-        states.shape)
+        return out
+    ag = _group_decays(a, w)                         # (outer, cols, a_in)
+    st = states.to(dt).reshape(outer, cols, a_in, rows)
+    ov = out.view(outer, cols, a_in, rows)
+    y = torch.zeros((outer, a_in, rows), dtype=dt, device=states.device)
+    for j in range(cols):
+        c = cols - 1 - j if reverse else j
+        y = ag[:, c, :, None] * y + st[:, c]
+        ov[:, c] = y
+    return out
+
+
+def _group_decays(a: torch.Tensor, w: dict) -> torch.Tensor:
+    """The decay of group (o, ai) at chunk c, (outer, cols, a_in), by the
+    kernel's index ``(o // a_div)·a_outer + ai + c·a_col``."""
+    dev = a.device
+    o = torch.arange(w["outer"], device=dev)[:, None, None]
+    c = torch.arange(w["cols"], device=dev)[None, :, None]
+    ai = torch.arange(w["a_in"], device=dev)[None, None, :]
+    return a.reshape(-1)[(o // w["a_div"]) * w["a_outer"] + ai
+                         + c * w["a_col"]]
+
+
+K4_RING_BYTES = 128          # of each operand in a thread's ring (RING_BYTES)
+
+
+def state_walk(rows: int, cols: int, itemsize: int,
+               da: bool = False) -> dict:
+    """How ``k4_state_kernel`` walks groups of ``rows`` payload elements
+    over ``cols`` chunks (``da``: the reverse walk that also loads y and
+    reduces da): ``vec`` contiguous elements a thread (16 or 8 bytes, or
+    one element), ``ring`` chunks whose loads a thread keeps in flight
+    (fixed by ``vec``, the dtype and ``da``: the kernel's ``ring_depth``),
+    ``sp`` a group's vector slots rounded up to whole warps.
+
+    The widest vector that divides a group's rows is taken, even where
+    the group's last warp is then partly idle: at Hymba's P·N = 800, 200
+    16-byte slots (7 warps, 24 lanes idle) ran in 0.0083 ms against
+    0.0114 for 25 whole warps of one element (NVIDIA H100 80GB HBM3,
+    ``experiments/k1_k4_redesign.py --k4-walks``). The ring holds
+    :data:`K4_RING_BYTES` of each operand it loads (y too, with ``da``),
+    4 to 32 chunks, so where that covers the chunks every load is issued
+    before the walk."""
+    vec = next(v for v in sorted({max(1, 16 // itemsize),
+                                  max(1, 8 // itemsize), 1}, reverse=True)
+               if rows % v == 0)
+    ring = min(32, max(4, K4_RING_BYTES // (vec * itemsize
+                                            * (2 if da else 1))))
+    return dict(vec=vec, ring=ring, sp=-(-(rows // vec) // 32) * 32)
+
+
+def state_da_plain(lam: torch.Tensor, y: torch.Tensor, a: torch.Tensor,
+                   axis: int) -> torch.Tensor:
+    """da[e] = Σ λ[c]·y[c−1] (y[−1] = 0) over the payload (and, where the
+    decay is shared along the chunks, the chunks and groups) of decay
+    element e, as the fused reverse walk sums it: each thread's ``vec``
+    products in order, the warp's lanes by an xor butterfly, then the
+    warps (and chunks and groups) in order, in float32 (float64 for
+    float64), rounded once to λ's dtype. ``a`` is the decay at its own
+    rank; returns da at ``state_scan_map``'s expanded decay shape."""
+    dt = lam.dtype
+    acc = torch.float64 if dt == torch.float64 else torch.float32
+    a, w = state_scan_map(a, lam, axis)
+    outer, cols, a_in, rows = w["outer"], w["cols"], w["a_in"], w["rows"]
+    walk = state_walk(rows, cols, lam.element_size(), da=True)
+    vec, sp = walk["vec"], walk["sp"]
+    lv = lam.reshape(outer, cols, a_in, rows).to(acc)
+    yv = y.reshape(outer, cols, a_in, rows).to(acc)
+    prod = torch.zeros((outer, cols, a_in, sp * vec), dtype=acc,
+                       device=lam.device)
+    prod[:, 1:, :, :rows] = lv[:, 1:] * yv[:, :-1]
+    prod = prod.view(outer, cols, a_in, sp // 32, 32, vec)
+    t = torch.zeros(prod.shape[:-1], dtype=acc, device=lam.device)
+    for e in range(vec):
+        t = t + prod[..., e]
+    lane = torch.arange(32, device=lam.device)
+    for d in (16, 8, 4, 2, 1):
+        t = t + t[..., lane ^ d]
+    part = t[..., 0]                             # (outer, cols, a_in, warps)
+    da = torch.zeros(a.numel(), dtype=acc, device=lam.device)
+    if w["a_col"]:                               # e = (o, c, ai)
+        for k in range(part.shape[-1]):
+            da = da + part[..., k].reshape(-1)
+    else:                                        # e = o // a_div
+        q = part.reshape(a.numel(), -1)
+        for i in range(q.shape[1]):
+            da = da + q[:, i]
+    return da.to(dt).view(a.shape)
+
+
+def k4_rows_bound_steps(c: int, rows: int, cols: int) -> int:
+    """k(c) of the rows entry's bound ``k(c)·eps·Σ_{j≤c}|b_j|`` at column
+    c of a (rows, cols) operand, for |a| ≤ 1: the fold's
+    (:func:`k4_bound_steps`) up to :data:`K4_FOLD_COLS` columns; past
+    them the Gluon walk's, ⌈log2 bc⌉ levels of its tree in a block, one
+    more for each block's carry, and two for the rest."""
+    if cols <= K4_FOLD_COLS:
+        return k4_bound_steps(c)
+    bc = block_shape(rows, cols)[1]
+    return math.ceil(math.log2(bc)) + -(-(c + 1) // bc) + 2
+
+
+def k4_bound_steps(c: int) -> int:
+    """k(c) of K4's first-order error bound ``k(c)·eps·Σ_{j≤c}|b_j|`` at
+    step c of its walk (counted from 0 in walk order) against the exact
+    recurrence, for |a| ≤ 1: b_j passes c − j products and c − j + 1
+    adds, each rounded once (half an eps), so (c + ½)·eps; one unit more
+    covers the second-order terms."""
+    return c + 2
 
 
 # ---------------------------------------------------------------------------
-# K4 in Gluon, K3 in CUDA C++
+# K4's rows entry past K4_FOLD_COLS columns, in Gluon
 # ---------------------------------------------------------------------------
 
 GLUON_SOURCE = '''
@@ -248,47 +379,6 @@ def k4_chunk_scan(A, B, O, rows, cols, stride_a, stride_b,
         b = gl.load(brow + c, mask=m, other=0).to(O.dtype.element_ty)
         y, carry = _scan_block(a, b, carry, last)
         gl.store(orow + c, y, mask=m)
-
-
-@gluon.jit
-def k4_state_scan(A, S, O, n_rb, rows, cols, inner, a_in, a_div, a_outer,
-                  a_col, BR: gl.constexpr, BC: gl.constexpr,
-                  SCAN: gl.constexpr, MOVE: gl.constexpr,
-                  REVERSE: gl.constexpr):
-    # group g = (outer index o, decay index ai): `rows` contiguous payload
-    # elements, its columns the chunks at stride `inner`. Loads and stores
-    # go along the rows (MOVE); the scan runs in SCAN, k4_chunk_scan's
-    # layout, so each row is combined in k4_chunk_scan's order. REVERSE
-    # maps the chunk index as k4_chunk_scan's does, decays included.
-    pid = gl.program_id(0)
-    g = pid // n_rb
-    o = g // a_in
-    ai = g % a_in
-    sbase = o.to(gl.int64) * cols * inner + ai.to(gl.int64) * rows
-    abase = (o // a_div).to(gl.int64) * a_outer + ai
-    r = (pid % n_rb) * BR + gl.arange(0, BR, layout=gl.SliceLayout(1, MOVE))
-    cmove = gl.arange(0, BC, layout=gl.SliceLayout(0, MOVE))
-    cscan = gl.arange(0, BC, layout=gl.SliceLayout(0, SCAN))
-    last = gl.expand_dims(cscan == BC - 1, 0)
-    carry = gl.zeros([BR], O.dtype.element_ty, layout=gl.SliceLayout(1, SCAN))
-    for c0 in range(0, cols, BC):
-        c = c0 + cmove
-        m = gl.expand_dims(r < rows, 1) & gl.expand_dims(c < cols, 0)
-        if REVERSE:
-            c = cols - 1 - c
-        off = (sbase + gl.expand_dims(c.to(gl.int64), 0) * inner
-               + gl.expand_dims(r, 1))
-        b = gl.load(S + off, mask=m, other=0).to(O.dtype.element_ty)
-        b = gl.convert_layout(b, SCAN)
-        ca = c0 + cscan
-        ma = ca < cols
-        if REVERSE:
-            ca = cols - 1 - ca
-        ac = gl.load(A + abase + ca.to(gl.int64) * a_col, mask=ma,
-                     other=1).to(O.dtype.element_ty)
-        a, b = gl.broadcast(gl.expand_dims(ac, 0), b)
-        y, carry = _scan_block(a, b, carry, last)
-        gl.store(O + off, gl.convert_layout(y, MOVE), mask=m)
 '''
 
 
@@ -299,18 +389,32 @@ def _gluon_kernels():
     return load_module(GLUON_SOURCE, prefix="scan")[0]
 
 
+def gluon_chunk_scan(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor,
+                     reverse: bool = False) -> torch.Tensor:
+    """One launch of the Gluon ``k4_chunk_scan`` on (rows, cols) operands
+    of one floating dtype (rows strided, columns contiguous) into ``out``
+    (contiguous, the same dtype): K4's rows entry past
+    :data:`K4_FOLD_COLS` columns; not counted here."""
+    rows, cols = a.shape
+    br, bc = block_shape(rows, cols)
+    nw = _num_warps(br, bc)
+    with torch.cuda.device(a.device):
+        _gluon_kernels().k4_chunk_scan[(-(-rows // br),)](
+            a, b, out, rows, cols, a.stride(0), b.stride(0), BR=br, BC=bc,
+            SCAN=_layout(scan_layout(br, bc, nw)), REVERSE=reverse,
+            num_warps=nw)
+    return out
+
+
 def _num_warps(br: int, bc: int) -> int:
     return 8 if br * bc >= 2048 else 4
 
 
 def scan_layout(br: int, bc: int, num_warps: int) -> tuple:
     """(size_per_thread, threads_per_warp, warps_per_cta, order): the
-    register layout of K4's scan over a (br, bc) block, in both of its
-    entries. Four columns a thread (16 bytes of float32), then lanes and
+    register layout of K4's rows entry over a (br, bc) block. Four columns a thread (16 bytes of float32), then lanes and
     warps along the columns, the rest along the rows: the layout that
-    coalesces a row-major block's loads. A scan's combine order follows
-    its layout, so one layout for both entries is what makes the
-    state-scan entry K4's result bit for bit."""
+    coalesces a row-major block's loads."""
     spt = min(4, bc)
     tc = min(32, bc // spt)
     wc = min(num_warps, max(1, bc // (spt * tc)))
@@ -318,21 +422,15 @@ def scan_layout(br: int, bc: int, num_warps: int) -> tuple:
 
 
 def _layout(shape: tuple):
-    """A :func:`scan_layout` or :func:`move_layout` tuple as Gluon's
+    """A :func:`scan_layout` tuple as Gluon's
     ``BlockedLayout`` (Triton imported at launch, never at import)."""
     from triton.experimental.gluon import language as gl
     return gl.BlockedLayout(*map(list, shape))
 
 
-def move_layout(br: int, bc: int, num_warps: int) -> tuple:
-    """The state-scan entry's layout for loads and stores: payload rows
-    fastest (they are contiguous in the states), up to four a thread,
-    then lanes and warps along the rows, the rest along the columns."""
-    spt = min(4, max(1, br // 32))
-    tpw = min(32, max(1, br // spt))
-    wpc = max(1, min(num_warps, br // (spt * tpw)))
-    return ((spt, 1), (tpw, 32 // tpw), (wpc, num_warps // wpc), (0, 1))
-
+# ---------------------------------------------------------------------------
+# K3 and K4's state-scan entry in CUDA C++
+# ---------------------------------------------------------------------------
 
 def _rows_operand(x: torch.Tensor) -> torch.Tensor:
     """Rows may be strided; the scanned axis must be contiguous."""
@@ -382,6 +480,13 @@ class PrefixSumKernel:
 
     def __init__(self):
         self.launches = 0
+        self._lib = None
+
+    def lib(self):
+        """The built and loaded ``csrc/prefix_scan.cu`` (once a wrapper)."""
+        if self._lib is None:
+            self._lib = _cuda.load("prefix_scan", _K3_SIGNATURES)
+        return self._lib
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         code = _K3_DTYPE_CODES.get(x.dtype)
@@ -394,7 +499,7 @@ class PrefixSumKernel:
         out = torch.empty((rows, cols), dtype=x.dtype, device=x.device)
         if x.numel() == 0:
             return out
-        lib = _cuda.load("prefix_scan", _K3_SIGNATURES)
+        lib = self.lib()
         with torch.cuda.device(x.device):
             # the look-back's tile counter and state words, zero-filled; the
             # walk takes none (the launcher chooses, from the shape)
@@ -413,14 +518,59 @@ class PrefixSumKernel:
         return out
 
 
+_K4_SIGNATURES = {
+    # (dtype, a, b, out, rows, cols, stride_a, stride_b, vec, reverse,
+    #  stream)
+    "k4_chunk_scan": (_cuda.I32, _cuda.P, _cuda.P, _cuda.P, _cuda.I64,
+                      _cuda.I64, _cuda.I64, _cuda.I64, _cuda.I32, _cuda.I32,
+                      _cuda.P),
+    # (dtype, a, s, out, y, partials, groups, rows, cols, inner, a_in,
+    #  a_div, a_outer, a_col, vec, sp, reverse, da, stream)
+    "k4_state_scan": (_cuda.I32, _cuda.P, _cuda.P, _cuda.P, _cuda.P,
+                      _cuda.P, _cuda.I64, _cuda.I64, _cuda.I64, _cuda.I64,
+                      _cuda.I64, _cuda.I64, _cuda.I64, _cuda.I64, _cuda.I32,
+                      _cuda.I64, _cuda.I32, _cuda.I32, _cuda.P),
+    # (dtype, partials, da, n_e, cols, a_in, a_div, wpg, per_chunk, stream)
+    "k4_da_sum": (_cuda.I32, _cuda.P, _cuda.P, _cuda.I64, _cuda.I64,
+                  _cuda.I64, _cuda.I64, _cuda.I64, _cuda.I32, _cuda.P),
+}
+
+
+def _k4_dtype(*dtypes) -> tuple[torch.dtype, int]:
+    """The promoted dtype K4 folds in, and its code in the CUDA source."""
+    dt = dtypes[0]
+    for d in dtypes[1:]:
+        dt = torch.promote_types(dt, d)
+    code = _K3_DTYPE_CODES.get(dt)
+    if code is None:
+        raise ValueError(f"K4 scans floating-point rows of float32, "
+                         f"float64, float16 or bfloat16, got {dt}")
+    return dt, code
+
+
+def _aligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``x`` where its address is a multiple of ``nbytes`` (the vector
+    the state walk moves), else a copy (a fresh allocation is)."""
+    return x if x.data_ptr() % nbytes == 0 else x.clone()
+
+
 class ChunkScanKernel:
     """The K4 wrapper. ``launches`` counts the forward walk's kernel
-    launches and ``reverse_launches`` the reverse walk's (the backward
-    of a scan), and only those."""
+    launches, ``reverse_launches`` the reverse walk's (the backward of a
+    scan) and ``da_launches`` the second pass that sums the reverse
+    walk's da partials, and only those."""
 
     def __init__(self):
         self.launches = 0
         self.reverse_launches = 0
+        self.da_launches = 0
+        self._lib = None
+
+    def lib(self):
+        """The built and loaded ``csrc/prefix_scan.cu`` (once a wrapper)."""
+        if self._lib is None:
+            self._lib = _cuda.load("prefix_scan", _K4_SIGNATURES)
+        return self._lib
 
     def _count(self, reverse: bool) -> None:
         if reverse:
@@ -430,22 +580,32 @@ class ChunkScanKernel:
 
     def __call__(self, a: torch.Tensor, b: torch.Tensor,
                  reverse: bool = False) -> torch.Tensor:
-        dt = torch.promote_types(a.dtype, b.dtype)
-        if not dt.is_floating_point:
-            raise ValueError(f"K4 scans floating-point rows, got {dt}")
+        """The rows entry on (rows, cols) operands, ``reverse`` from each
+        row's last column: one launch of ``k4_rows_kernel`` up to
+        :data:`K4_FOLD_COLS` columns, of the Gluon kernel past them."""
+        dt, code = _k4_dtype(a.dtype, b.dtype)
         check_cuda([a, b], "K4")
-        a, b = _rows_operand(a), _rows_operand(b)
+        a, b = _rows_operand(a.to(dt)), _rows_operand(b.to(dt))
         rows, cols = a.shape
         out = torch.empty((rows, cols), dtype=dt, device=a.device)
         if a.numel() == 0:
             return out
-        br, bc = block_shape(rows, cols)
-        nw = _num_warps(br, bc)
+        if cols > K4_FOLD_COLS:
+            gluon_chunk_scan(a, b, out, reverse)
+            self._count(reverse)
+            return out
+        # 16-byte chunks where the rows and both operands allow
+        vec = 16 // out.element_size()
+        if (cols % vec or a.stride(0) % vec or b.stride(0) % vec
+                or a.data_ptr() % 16 or b.data_ptr() % 16):
+            vec = 1
+        lib = self.lib()
         with torch.cuda.device(a.device):
-            _gluon_kernels().k4_chunk_scan[(-(-rows // br),)](
-                a, b, out, rows, cols, a.stride(0), b.stride(0), BR=br,
-                BC=bc, SCAN=_layout(scan_layout(br, bc, nw)),
-                REVERSE=reverse, num_warps=nw)
+            err = lib.k4_chunk_scan(
+                code, a.data_ptr(), b.data_ptr(), out.data_ptr(), rows, cols,
+                a.stride(0), b.stride(0), vec, int(reverse),
+                torch.cuda.current_stream().cuda_stream)
+        _cuda.check(lib, err, "K4 chunk_scan")
         self._count(reverse)
         return out
 
@@ -453,31 +613,66 @@ class ChunkScanKernel:
                    axis: int, reverse: bool = False) -> torch.Tensor:
         """The scan along ``axis`` of ``states`` with the decay ``a`` at
         its own rank (the states' leading dims), in one launch of
-        ``k4_state_scan`` on the states where they lie; the output in
+        ``k4_state_kernel`` on the states where they lie; the output in
         their layout (see :func:`state_scan_map`). ``reverse`` walks the
         chunks from the last one."""
-        dt = torch.promote_types(a.dtype, states.dtype)
-        if not dt.is_floating_point:
-            raise ValueError(f"K4 scans floating-point rows, got {dt}")
-        check_cuda([a, states], "K4")
-        a, w = state_scan_map(a, states, axis)
-        states = states.contiguous()
+        return self._state(a, states, axis, reverse, None)[0]
+
+    def state_scan_grad(self, a: torch.Tensor, g: torch.Tensor,
+                        y: torch.Tensor, axis: int):
+        """(λ, da) of the backward: λ the reverse walk of ``g`` under the
+        decay ``a`` (already shifted, :func:`next_decay`), and da[e] =
+        Σ λ[c]·y[c−1] over decay element e's payload, reduced inside the
+        same walk from the forward's output ``y`` and summed by a second
+        launch (``k4_da_sum``, counted in ``da_launches``); da has
+        :func:`state_scan_map`'s expanded decay shape."""
+        return self._state(a, g, axis, True, y)
+
+    def _state(self, a, states, axis, reverse, y):
+        dt, code = _k4_dtype(a.dtype, states.dtype)
+        check_cuda([a, states] + ([] if y is None else [y]), "K4")
+        a, w = state_scan_map(a.to(dt), states, axis)
         out = torch.empty(states.shape, dtype=dt, device=states.device)
         if states.numel() == 0:
-            return out
+            return out, (None if y is None else
+                         torch.zeros(a.shape, dtype=dt, device=a.device))
         cols, rows = w["cols"], w["rows"]
-        br, bc = block_shape(states.numel() // cols, cols)
-        nw = _num_warps(br, bc)
-        n_rb = -(-rows // br)
+        walk = state_walk(rows, cols, out.element_size(), da=y is not None)
+        nbytes = walk["vec"] * out.element_size()
+        states = _aligned(states.to(dt).contiguous(), nbytes)
+        groups = w["outer"] * w["a_in"]
+        partials = None
+        if y is not None:
+            if y.shape != states.shape:
+                raise ValueError(f"K4: y {tuple(y.shape)} is not shaped as "
+                                 f"the states {tuple(states.shape)}")
+            y = _aligned(y.to(dt).contiguous(), nbytes)
+            acc = torch.float64 if dt == torch.float64 else torch.float32
+            partials = torch.empty(groups * cols * walk["sp"] // 32,
+                                   dtype=acc, device=states.device)
+        lib = self.lib()
         with torch.cuda.device(states.device):
-            _gluon_kernels().k4_state_scan[(w["outer"] * w["a_in"] * n_rb,)](
-                a, states, out, n_rb, rows, cols, w["inner"], w["a_in"],
-                w["a_div"], w["a_outer"], w["a_col"], BR=br, BC=bc,
-                SCAN=_layout(scan_layout(br, bc, nw)),
-                MOVE=_layout(move_layout(br, bc, nw)),
-                REVERSE=reverse, num_warps=nw)
-        self._count(reverse)
-        return out
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.k4_state_scan(
+                code, a.data_ptr(), states.data_ptr(), out.data_ptr(),
+                None if y is None else y.data_ptr(),
+                None if partials is None else partials.data_ptr(), groups,
+                rows, cols, w["inner"], w["a_in"], w["a_div"], w["a_outer"],
+                w["a_col"], walk["vec"], walk["sp"], int(reverse),
+                int(y is not None), stream)
+            _cuda.check(lib, err, "K4 state_scan")
+            self._count(reverse)
+            if y is None:
+                return out, None
+            # k4_da_sum writes every element of da
+            da = torch.empty(a.shape, dtype=dt, device=states.device)
+            err = lib.k4_da_sum(code, partials.data_ptr(), da.data_ptr(),
+                                da.numel(), cols, w["a_in"], w["a_div"],
+                                walk["sp"] // 32, int(bool(w["a_col"])),
+                                stream)
+        _cuda.check(lib, err, "K4 da_sum")
+        self.da_launches += 1
+        return out, da
 
 
 #: The process-wide kernel wrappers; ``K3.launches`` / ``K4.launches``.
@@ -502,7 +697,7 @@ def chunk_scan_kernel(a: torch.Tensor, b: torch.Tensor,
     if a.shape != b.shape:
         raise ValueError("a and b must match")
     if interpret:
-        return chunk_scan_plain(a, b, block_shape(*a.shape)[1], reverse)
+        return chunk_scan_plain(a, b, reverse=reverse)
     return K4(a, b, reverse)
 
 
@@ -561,12 +756,16 @@ def state_scan_grad(a: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
     axis counted on the states, ``a`` at the states' leading dims, as
     :func:`state_scan_map` expands it) for the output's gradient ``g``:
     one reverse walk of K4's state-scan entry on ``g`` where it lies,
-    with the shifted decay at ``a``'s rank; da[c] = Σ λ[c]·y[c−1] over
-    the states' payload dims (a torch reduction)."""
-    nd = y.ndim
-    ax = axis % nd
+    with the shifted decay at ``a``'s rank, which also reduces da[c] =
+    Σ λ[c]·y[c−1] over the states' payload dims, and the second launch
+    that sums its partials (:meth:`ChunkScanKernel.state_scan_grad`); or
+    the plain walk and :func:`state_da_plain`, the same reduction in
+    torch (``interpret``)."""
+    ax = axis % y.ndim
     a = a.expand(y.shape[:a.ndim])
     shifted_a = next_decay(a, ax) if ax < a.ndim else a
-    lam = chunk_scan_state_kernel(shifted_a, g, axis, interpret,
-                                  reverse=True)
-    return _prev_product(lam, y, ax, a.ndim), lam
+    if interpret:
+        lam = chunk_scan_state_kernel(shifted_a, g, axis, True, reverse=True)
+        return state_da_plain(lam, y, a, axis), lam
+    lam, da = K4.state_scan_grad(shifted_a, g, y, axis)
+    return da, lam

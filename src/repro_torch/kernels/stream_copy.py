@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stream import LANES, StreamConfig, flatten_to_blocks
+from repro_torch.core.stream import LANES, StreamConfig
 from repro_torch.core.template import KernelTemplate
 
 
@@ -79,11 +79,13 @@ TRIAD = _template("c0_triad", _triad_body, _TRIAD_TRITON, n_scalar_in=1,
 
 
 def _launch(tpl: KernelTemplate, scalars, vectors, interpret: bool):
-    """Flatten to the template's declared block, launch once, restore
-    the caller's shape."""
-    blocks = [flatten_to_blocks(v, tpl.block_cols)[0] for v in vectors]
-    out = tpl(*scalars, *blocks, interpret=interpret)
-    return out.reshape(-1)[:vectors[0].numel()].reshape(vectors[0].shape)
+    """One launch at the template's declared block on the operands as
+    they lie, the tail masked (``Program.call_flat``), in the caller's
+    shape."""
+    return tpl.program().call_flat(*scalars, *vectors,
+                                   block_rows=tpl.block_rows,
+                                   block_cols=tpl.block_cols,
+                                   interpret=interpret)
 
 
 def _scalar_as(s, dtype: torch.dtype) -> float:

@@ -13,6 +13,7 @@ The kernels themselves run only on the card
 (tests/test_torch_scan_sort_kernels.py).
 """
 import ast
+import math
 import importlib.util
 import re
 from pathlib import Path
@@ -223,22 +224,25 @@ def test_scan_registrations_mirror_jax():
 
 
 def test_triton_source_defines_k3_and_k4():
-    # K4 and its combine are Gluon (Triton with explicit layouts); K3 is
-    # CUDA C++ (csrc/prefix_scan.cu)
+    # K3 and K4 are CUDA C++ in one source (csrc/prefix_scan.cu), each
+    # launcher's C signature as its ctypes one; K4's rows entry past
+    # K4_FOLD_COLS columns keeps the former Gluon kernel
     tree = ast.parse(ps.GLUON_SOURCE)
     fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    assert {"_affine", "k4_chunk_scan"} <= set(fns)
-    assert "k3_prefix_sum" not in fns
+    assert set(fns) == {"_affine", "_scan_block", "k4_chunk_scan"}
     for fn in fns.values():
         assert [ast.unparse(d) for d in fn.decorator_list] == ["gluon.jit"]
     src = (_cuda.CSRC / "prefix_scan.cu").read_text()
-    for name, argtypes in ps._K3_SIGNATURES.items():
+    for name, argtypes in {**ps._K3_SIGNATURES,
+                           **ps._K4_SIGNATURES}.items():
         m = re.search(rf'extern "C" int {name}\(([^)]*)\)', src, re.S)
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes)
     assert "repro_cuda_error_string" in src
     assert "atomicAdd" in src and "__ballot_sync" in src      # look-back
     assert "k3_walk_kernel" in src                             # walk
+    for kernel in ("k4_state_kernel", "k4_rows_kernel", "k4_da_kernel"):
+        assert f"{kernel}(" in src
 
 
 # ---------------------------------------------------------------------------
@@ -276,8 +280,7 @@ def test_smoke_phase_g_matches_jax(smoke):
                                  jnp.asarray(s.numpy()), axis=1,
                                  mode="interpret")
     close(got, want, AFFINE_TOL)
-    bad, _ = smoke.statescan_bound_misses(got, a, s,
-                                          ps.block_shape(s.numel() // 8, 8)[1])
+    bad, _ = smoke.statescan_bound_misses(got, a, s)
     assert bad == 0
     with pytest.raises(RuntimeError, match="CUDA"):
         smoke.phase_g(a, s, "kernel")
@@ -287,17 +290,16 @@ def test_smoke_statescan_hold_rejects_a_wrong_decay(smoke):
     # the hold J and K give K4 at their path's shape must pass the walk
     # and fail a scan that reads the next chunk's decay or drops the carry
     a, s = smoke.ssd_inputs(22, (2, 8, 4), (5, 16), "cpu")
-    bc = ps.block_shape(s.numel() // 8, 8)[1]
     good = smoke.phase_g(a, s, "interpret")
     check = smoke.Check()
-    assert smoke.hold_statescan(check, "walk", good, good, a, s, bc) < 1e-5
+    assert smoke.hold_statescan(check, "walk", good, good, a, s) < 1e-5
     assert check.failures == []
     shifted_a = torch.roll(a, 1, dims=1)
     no_carry = s.clone()
     for bad in (smoke.phase_g(shifted_a, s, "interpret"), no_carry):
         check = smoke.Check()
-        smoke.hold_statescan(check, "broken", bad, good, a, s, bc)
-        assert len(check.failures) == 2      # K4 and |K4 - plain| miss
+        smoke.hold_statescan(check, "broken", bad, good, a, s)
+        assert len(check.failures) == 2      # the bound and K4 == plain
 
 
 def broken_carries(good: torch.Tensor, bc: int) -> list[torch.Tensor]:
@@ -338,16 +340,16 @@ def statescan_grads(smoke, seed, modes=("interpret", "ref")):
         ar, sr = a.clone().requires_grad_(), s.clone().requires_grad_()
         y = ops.chunk_scan_state(ar, sr, axis=1, mode=mode)
         grads[mode] = torch.autograd.grad(y, (ar, sr), g)
-    return grads, a, s, g, ps.block_shape(s.numel() // 12, 12)[1]
+    return grads, a, s, g
 
 
 def test_smoke_statescan_grad_hold_passes_the_backward(smoke):
     # phase L's hold of c4_statescan's backward: the plain walk's
     # gradients and the oracle's autograd both within its bounds
-    grads, a, s, g, bc = statescan_grads(smoke, 24)
-    bad, worst = smoke.statescan_grad_misses(grads, a, s, g, bc)
+    grads, a, s, g = statescan_grads(smoke, 24)
+    bad, worst = smoke.statescan_grad_misses(grads, a, s, g)
     assert set(bad) == {"interpret ds", "interpret da", "ref ds", "ref da",
-                        "|ds interpret - ref|"}
+                        "|ds interpret - ref|", "|da interpret - ref|"}
     assert not any(bad.values()), bad
     assert max(worst.values()) < 1e-4
 
@@ -357,8 +359,8 @@ def test_smoke_statescan_grad_hold_passes_the_backward(smoke):
 def test_smoke_statescan_grad_hold_rejects_a_broken_backward(
         smoke, monkeypatch, kind):
     monkeypatch.setattr(ps, "state_scan_grad", broken_state_scan_grad(kind))
-    grads, a, s, g, bc = statescan_grads(smoke, 26)
-    bad, _ = smoke.statescan_grad_misses(grads, a, s, g, bc)
+    grads, a, s, g = statescan_grads(smoke, 26)
+    bad, _ = smoke.statescan_grad_misses(grads, a, s, g)
     assert bad["interpret ds"] + bad["interpret da"] > 0
     assert bad["ref ds"] == bad["ref da"] == 0
 
@@ -551,6 +553,62 @@ def test_state_scan_walk_is_the_former_composition_bit_for_bit(case):
     assert torch.equal(ps.state_scan_plain(a, s, axis), want)
 
 
+ORACLE_CASES = [c for c, (a_shape, s_shape, axis) in STATE_CASES.items()
+                if 0 <= axis < len(a_shape) and "broadcast" not in c]
+
+
+@pytest.mark.parametrize("case", ORACLE_CASES)
+def test_state_scan_walk_matches_the_oracle(case):
+    # the fold against the reference's associative-scan oracle: two
+    # orders of one recurrence, within the JAX tests' affine tolerance
+    a_shape, s_shape, axis = STATE_CASES[case]
+    a, s = decay(a_shape), normal(s_shape)
+    want = jref_chunk_scan_state(jnp.asarray(a), jnp.asarray(s), axis=axis)
+    got = ps.state_scan_plain(torch.from_numpy(a), torch.from_numpy(s), axis)
+    close(got, want, AFFINE_TOL)
+
+
+@pytest.mark.parametrize("case", list(STATE_CASES))
+def test_fused_da_plain_is_the_prev_product(case):
+    # da as the fused reverse walk sums it (each thread's vector, the
+    # warp's butterfly, the warps, the blocks) against the product at the
+    # states' size and torch's sum: the same products in two orders, so
+    # |Δ| ≤ n·eps·Σ|λ·y| for n terms a decay element
+    a_shape, s_shape, axis = STATE_CASES[case]
+    a = torch.from_numpy(decay(a_shape))
+    lam, y = (torch.from_numpy(normal(s_shape)) for _ in range(2))
+    ax = axis % len(s_shape)
+    ae = a.expand(s_shape[:a.ndim])
+    got = ps.state_da_plain(lam, y, ae, axis)
+    want = ps._prev_product(lam, y, ax, a.ndim)
+    absum = ps._prev_product(lam.abs(), y.abs(), ax, a.ndim)
+    terms = math.prod(s_shape) // math.prod(want.shape)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    eps = float(torch.finfo(torch.float32).eps)
+    assert bool(((got - want).abs() <= terms * eps * absum).all())
+    # in float64 the two orders agree to float64's rounding
+    g64 = ps.state_da_plain(lam.double(), y.double(), ae.double(), axis)
+    w64 = ps._prev_product(lam.double(), y.double(), ax, a.ndim)
+    close(g64, w64, dict(rtol=1e-12, atol=1e-12))
+
+
+@pytest.mark.parametrize("shape", [(4, 3000), (16, 64), (3, 37)])
+def test_k4_bound_steps_hold_the_fold(shape):
+    # the fold within k4_bound_steps(c)·eps·Σ_{j≤c}|b_j| of float64, for
+    # decays in (0, 1]
+    a = torch.from_numpy(1 - RNG.uniform(0, 1, shape).astype(np.float32))
+    b = torch.from_numpy(normal(shape))
+    got = ps.state_scan_plain(a.t(), b.t()[..., None], 0)[..., 0].t().double()
+    y = torch.zeros(shape[0], dtype=torch.float64)
+    s = torch.zeros_like(y)
+    eps = float(torch.finfo(torch.float32).eps)
+    for c in range(shape[1]):
+        y = a[:, c].double() * y + b[:, c].double()
+        s = s + b[:, c].double().abs()
+        assert bool(((got[:, c] - y).abs()
+                     <= ps.k4_bound_steps(c) * eps * s).all())
+
+
 def test_state_scan_promotes_and_takes_strided_states():
     a = torch.from_numpy(decay((2, 6, 3))).to(torch.bfloat16)
     s = torch.from_numpy(normal((2, 6, 3, 5, 8)))
@@ -587,11 +645,19 @@ def test_state_scan_on_cpu_tensors_raises():
 @pytest.mark.parametrize("br,bc", [(128, 32), (512, 8), (2, 16), (8, 512),
                                    (4096, 1)])
 def test_move_layout_covers_the_rows_first(br, bc):
-    nw = ps._num_warps(br, bc)
-    spt, tpw, wpc, order = ps.move_layout(br, bc, nw)
-    assert order == (0, 1) and spt[1] == 1
-    assert tpw[0] * tpw[1] == 32 and wpc[0] * wpc[1] == nw
-    assert spt[0] * tpw[0] * wpc[0] <= br       # no row held twice
+    # the state walk moves along a group's br contiguous payload rows: a
+    # thread's vector divides them, whole warps cover each row once, and
+    # a thread's ring holds at most K4_RING_BYTES of each operand it loads
+    # (y too, with da), all the chunks where that covers them
+    for da in (False, True):
+        w = ps.state_walk(br, bc, 4, da)
+        assert br % w["vec"] == 0 and w["vec"] in (1, 2, 4)
+        assert w["sp"] % 32 == 0 and w["sp"] - 32 < br // w["vec"] <= w["sp"]
+        assert 4 <= w["ring"] <= 32
+        per = w["vec"] * 4 * (2 if da else 1)
+        assert w["ring"] * per <= max(ps.K4_RING_BYTES, 4 * per)
+        if bc * per <= ps.K4_RING_BYTES:
+            assert w["ring"] >= bc         # every chunk's load in flight
 
 
 @pytest.mark.parametrize("br,bc", [(128, 32), (512, 8), (2, 16), (8, 512),
@@ -606,38 +672,82 @@ def test_scan_layout_coalesces_the_columns(br, bc):
         assert tpw == (1, 32)                   # a warp spans 128 columns
 
 
+@pytest.mark.parametrize("rows,cols,want", [
+    (8192, 32, dict(vec=4, ring=8, sp=2048)),     # G, J
+    (8192, 16, dict(vec=4, ring=8, sp=2048)),     # L, N7a forward
+    (800, 8, dict(vec=4, ring=8, sp=224)),        # K: 7 warps, 24 lanes idle
+    (99, 5, dict(vec=1, ring=32, sp=128)),        # ragged: one element
+    (8192, 100, dict(vec=4, ring=8, sp=2048)),    # a ring over 100 chunks
+])
+def test_state_walk_at_the_paths_shapes(rows, cols, want):
+    assert ps.state_walk(rows, cols, 4) == want
+
+
+@pytest.mark.parametrize("br,bc", [(128, 32), (512, 8), (2, 16), (4096, 1),
+                                   (1, 8), (3, 64), (8, 65), (2, 512)])
+def test_rows_entry_is_the_state_entrys_fold_up_to_64_columns(br, bc):
+    # up to K4_FOLD_COLS columns the rows entry's plain walk on (br, bc)
+    # rows is the sequential fold and the state entry's on the same
+    # numbers laid out as states (a group a row, one payload element),
+    # bit for bit, both ways; past it the Gluon kernel's blocked walk,
+    # within k4_rows_bound_steps of float64
+    a = torch.from_numpy(decay((br, bc)))
+    b = torch.from_numpy(normal((br, bc)))
+    eps = float(torch.finfo(torch.float32).eps)
+    for reverse in (False, True):
+        step = (lambda t: t.flip(1)) if reverse else (lambda t: t)
+        rows = step(ps.chunk_scan_plain(a, b, reverse=reverse))
+        if bc <= ps.K4_FOLD_COLS:
+            states = ps.state_scan_plain(a.t(), b.t()[..., None], 0, reverse)
+            assert torch.equal(rows, step(states[..., 0].t()))
+            y = torch.zeros(br)
+            for c in range(bc):
+                y = step(a)[:, c] * y + step(b)[:, c]
+                assert torch.equal(rows[:, c], y)
+            continue
+        y = torch.zeros(br, dtype=torch.float64)
+        s = torch.zeros_like(y)
+        for c in range(bc):
+            y = step(a)[:, c].double() * y + step(b)[:, c].double()
+            s = s + step(b)[:, c].double().abs()
+            bound = ps.k4_rows_bound_steps(c, br, bc) * eps * s
+            assert bool(((rows[:, c].double() - y).abs() <= bound).all())
+
+
 def test_gluon_source_defines_the_state_scan_entry():
-    tree = ast.parse(ps.GLUON_SOURCE)
-    fns = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
-    assert set(fns) == {"_affine", "_scan_block", "k4_chunk_scan",
-                        "k4_state_scan"}
-    for fn in fns.values():
-        assert [ast.unparse(d) for d in fn.decorator_list] == ["gluon.jit"]
-    # one block body for both entries, in the one stated layout
-    assert "gl.associative_scan((a, b), 1, _affine)" in ast.unparse(
-        fns["_scan_block"])
-    for name in ("k4_chunk_scan", "k4_state_scan"):
-        body = ast.unparse(fns[name])
-        assert "_scan_block(a, b, carry, last)" in body
-        assert "SCAN: gl.constexpr" in body
-    assert "gl.convert_layout(b, SCAN)" in ast.unparse(fns["k4_state_scan"])
-    assert "warmup" not in ps.GLUON_SOURCE and not hasattr(
-        ps, "parse_scan_layout")
+    # the state entry (k4_state_kernel) and the rows entry (k4_rows_kernel)
+    # share one fold, each product and add rounded alone (no FMA), and the
+    # reverse walk's da is reduced without atomics
+    src = (_cuda.CSRC / "prefix_scan.cu").read_text()
+    k4 = src[src.index("namespace k4 {"):src.index("}  // namespace k4")]
+    assert k4.count("fold(") >= 6         # four dtypes, two entries
+    assert "__fadd_rn(__fmul_rn(a, y), b)" in k4
+    assert "__dadd_rn(__dmul_rn(a, y), b)" in k4
+    assert "carry.v[e] = fold(dk, carry.v[e], cur.v[e])" in k4
+    assert "carry = fold(x.v[ee], carry, y.v[ee])" in k4      # rows entry
+    # past 64 columns the rows entry is the Gluon tree
+    assert "gl.associative_scan((a, b), 1, _affine)" in ps.GLUON_SOURCE
+    assert "atomic" not in k4
+    assert "__shfl_xor_sync" in k4
+    assert "convert_layout" not in src and "associative_scan" not in src
+
+
+def test_gluon_entries_take_the_reverse_walk():
+    # both entries map the walk's step j to chunk cols - 1 - j: the
+    # ring's first loads, its refills and each step's fold (states,
+    # decays, y and da's partials alike)
+    src = (_cuda.CSRC / "prefix_scan.cu").read_text()
+    k4 = src[src.index("namespace k4 {"):src.index("}  // namespace k4")]
+    for step in ("k", "j", "jn"):
+        assert f"reverse ? cols - 1 - {step} : {step}" in k4
+    assert "(REV ? cpr - 1 - j : j)" in k4                  # rows entry
+    assert "c = cols - 1 - c" in ps.GLUON_SOURCE             # past 64
+
 
 # ---------------------------------------------------------------------------
 # under autograd: the Functions of c4_chunkscan and c4_statescan, whose
 # backward is K4's reverse walk
 # ---------------------------------------------------------------------------
-
-def test_gluon_entries_take_the_reverse_walk():
-    tree = ast.parse(ps.GLUON_SOURCE)
-    fns = {n.name: ast.unparse(n) for n in tree.body
-           if isinstance(n, ast.FunctionDef)}
-    for name in ("k4_chunk_scan", "k4_state_scan"):
-        assert "REVERSE: gl.constexpr" in fns[name]
-        assert "c = cols - 1 - c" in fns[name]       # indices only
-    assert "ca = cols - 1 - ca" in fns["k4_state_scan"]   # the decays too
-
 
 @pytest.mark.parametrize("shape", [(3, 37), (1, 1), (5, 8), (2, 300)])
 def test_reverse_walk_is_the_forward_walk_on_flipped_rows(shape):

@@ -547,12 +547,28 @@ class TestWarmDispatch:
 
 @pytest.mark.parametrize("names", CHAINS, ids="+".join)
 def test_generated_kernel_source_parses(names):
+    # the solo walk: each operand's block loaded for the first
+    # K1_PREFETCH steps before the loop and, in it, for the step that far
+    # ahead of the one computed; with ragged, every load and store masked
+    # past n_valid; the batch kernel as it was
     prog = isa.fuse(*names).program
-    src = fk.kernel_source(prog.stages, prog._n_ext)
+    nv = prog.n_ext_vec_in
+    loads = (fk.K1_PREFETCH + 1) * nv
+    for ragged in (False, True):
+        src = fk.kernel_source(prog.stages, prog._n_ext, ragged=ragged)
+        compile(src, "<k1>", "exec")
+        assert src.count("tl.load(X") == loads
+        assert src.count("tl.store(O") == prog.n_vec_out
+        assert src.count("@triton.jit") == len(names) + 1
+        assert "def k1_kernel(" in src
+        assert "for step in range(0, n_steps)" in src
+        assert src.count("< n_valid") == ((loads + prog.n_vec_out) if ragged
+                                          else 0)
+        assert "evict" not in src
+    src = fk.kernel_source(prog.stages, prog._n_ext, batch=True)
     compile(src, "<k1>", "exec")
     assert src.count("tl.load(X") == prog.n_ext_vec_in
-    assert src.count("tl.store(O") == prog.n_vec_out
-    assert src.count("@triton.jit") == len(names) + 1
+    assert "def k1_batch_kernel(" in src
 
 
 def test_generated_source_carries_state_in_registers():
@@ -565,8 +581,12 @@ def pmax(x0, carry, step):
     src = fk.kernel_source((t.stage(),), (1,))
     compile(src, "<k1>", "exec")
     assert "_CINIT0 = tl.constexpr(float('-inf'))" in src
-    assert src.index("c0 = tl.full((BR, 1), _CINIT0") < src.index(
-        "for step in range")
+    loop = src.index("for step in range(0, n_steps)")
+    assert src.index("c0 = tl.full((BR, 1), _CINIT0") < loop
+    # the next step's block is loaded before this step's chain runs
+    body = src[loop:]
+    assert body.index(f"x0_{fk.K1_PREFETCH - 1} = tl.load(") < body.index(
+        "_stage0_pmax(")
 
 
 def test_stage_without_triton_body_has_no_kernel():
@@ -689,6 +709,118 @@ def bits(a) -> np.ndarray:
                 if a.dtype == torch.bfloat16 else a.numpy())
     a = np.asarray(a)
     return a.view(np.uint16) if a.dtype.itemsize == 2 else a
+
+
+# ---------------------------------------------------------------------------
+# K1's solo route on operands as they lie, the tail masked, against the
+# reference's call on operands padded to whole blocks
+# ---------------------------------------------------------------------------
+
+SOLO_CHAINS = [("c0_copy",), ("c0_add",), ("c0_triad",),
+               ("c0_scale", "c0_add"), ("c0_scale", "c0_add", "c0_copy")]
+SOLO_SIZES = [1000, 3 * 4096 + 5, 2 * 8 * 1024]   # ragged, ragged, whole
+
+
+def _operands(prog, n: int, seed: int):
+    """Scalars 2.5, -0.75, … and seeded float32 vectors of n, in program
+    order, as numpy."""
+    rng = np.random.default_rng(seed)
+    ops, k = [], 0
+    for st, ne in zip(prog.stages, prog._n_ext):
+        for _ in range(st.n_scalar_in):
+            ops.append(np.float32((2.5, -0.75)[k % 2]))
+            k += 1
+        ops += [rng.standard_normal(n).astype(np.float32) for _ in range(ne)]
+    return ops
+
+
+@pytest.mark.parametrize("n", SOLO_SIZES)
+@pytest.mark.parametrize("names", SOLO_CHAINS, ids="+".join)
+def test_masked_solo_call_is_the_references_padded_call(names, n,
+                                                        fresh_caches):
+    # the port walks the operands where they lie, masked past n; the
+    # reference pads them to whole blocks: at the reference's own
+    # geometry the outputs agree — bit for bit for copies and adds, within
+    # the multiply-add bound 4·eps·Σ|term| where XLA may contract s·x + b
+    jp = jisa.fuse(*names).program
+    tp = isa.fuse(*names).program
+    br, bc = jp.negotiate_geometry(n, jnp.float32)[:2]
+    ops = _operands(tp, n, 40 + n)
+    want = np.asarray(jp(*[jnp.asarray(o) for o in ops], interpret=True))
+    got = tp.call_flat(*[torch.from_numpy(np.asarray(o)) if np.ndim(o)
+                         else float(o) for o in ops],
+                       block_rows=br, block_cols=bc, interpret=True)
+    assert tuple(got.shape) == (n,) and got.dtype == torch.float32
+    if any(st.n_scalar_in for st in tp.stages):
+        terms = sum(np.abs(o) for o in ops if np.ndim(o)) * 2.5
+        assert np.all(np.abs(got.numpy() - want) <= 4 * EPS * terms)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", SOLO_SIZES)
+def test_masked_solo_call_carries_as_the_references_padded_call(
+        smoke, n, fresh_caches):
+    # the carried c7_absmax_scale: a masked load reads the pad's zeros,
+    # so each row's running absmax is the reference's, bit for bit
+    jt = JaxTemplate(name="c7_absmax_scale", body=_jax_absmax_body,
+                     n_vec_in=1, n_vec_out=1, carry_cols=1, carry_init=0.0)
+    jp = jprog.Program((jt.stage(),))
+    tp = Program((smoke.ABSMAX.stage(),))
+    br, bc = jp.negotiate_geometry(n, jnp.float32)[:2]
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    want = np.asarray(jp(jnp.asarray(x), interpret=True))
+    got = tp.call_flat(torch.from_numpy(x), block_rows=br, block_cols=bc,
+                       interpret=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", SOLO_SIZES[:2])
+def test_ragged_shape_changing_call_is_the_references(smoke, n,
+                                                      fresh_caches):
+    # a shape-changing stage (to_bf16: another dtype) under
+    # Program.__call__: the operand as it lies, the tail masked, against
+    # the reference's padded call
+    x = np.random.default_rng(n + 1).standard_normal(n).astype(np.float32)
+    want = bits(jprog.Program((JAX_O1["to_bf16"].stage(),))(
+        jnp.asarray(x), interpret=True))
+    got = Program((smoke.TO_BF16.stage(),))(torch.from_numpy(x),
+                                            interpret=True)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (n,)
+    np.testing.assert_array_equal(bits(got), want)
+
+
+def test_ragged_pairsum_call_refuses_as_the_references(smoke, fresh_caches):
+    # an output narrower than the operand (pairsum: half the columns) is
+    # written whole in the padded layout and cut to its first n elements,
+    # as the reference's entry path does: fewer than n, so neither gives
+    # back the operand's shape
+    x = np.random.default_rng(7).standard_normal(1000).astype(np.float32)
+    with pytest.raises(TypeError, match="reshape"):
+        jprog.Program((JAX_O1["pairsum"].stage(),))(jnp.asarray(x),
+                                                    interpret=True)
+    with pytest.raises(RuntimeError, match="shape"):
+        Program((smoke.PAIRSUM.stage(),))(torch.from_numpy(x),
+                                          interpret=True)
+
+
+@pytest.mark.parametrize("n", SOLO_SIZES[:2])
+def test_ragged_stream_instructions_are_the_references(n):
+    # the c0 instructions launch at their template's block on the
+    # operands as they lie (no pad copy)
+    rng = np.random.default_rng(n + 2)
+    a, b = (rng.standard_normal(n).astype(np.float32) for _ in range(2))
+    ta, tb, ja, jb = (torch.from_numpy(a), torch.from_numpy(b),
+                      jnp.asarray(a), jnp.asarray(b))
+    from repro_torch.kernels import ops
+    for got, want in (
+            (ops.stream_copy(ta, mode="interpret"),
+             jisa.call("c0_copy", ja, mode="interpret")),
+            (ops.stream_add(ta, tb, mode="interpret"),
+             jisa.call("c0_add", ja, jb, mode="interpret")),
+            (ops.stream_scale(ta, 2.5, mode="interpret"),
+             jisa.call("c0_scale", ja, 2.5, mode="interpret"))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_smoke_phase_o1_matches_jax(smoke):

@@ -1,7 +1,8 @@
 """K3–K6 against their plain PyTorch versions, on the card.
 
-K3 (the look-back scan), K5 and K6 are CUDA C++ (built with nvcc at first
-use) and K4 is Gluon (Triton); none has a CPU mode, so every test here is marked
+K3 (the look-back scan), K4 (the affine fold), K5 and K6 are CUDA C++
+(built with nvcc at first use), and K4's rows entry past 64 columns is
+Gluon (Triton); none has a CPU mode, so every test here is marked
 ``gpu`` and skips without a CUDA device. Run them on an H100 with
 ``pytest -m gpu tests/test_torch_scan_sort_kernels.py``.
 
@@ -13,8 +14,11 @@ ends of the earlier blocks of ``bc`` columns) with K3's constants
 (``prefix_scan.k3_bound_constants``: at most 25 adds inside a 4096-column
 tile, the exclusive prefix rounded once from the double look-back) and
 the plain walk's (⌈log2 bc⌉, 1: a tree inside each block, one add of the
-carry per block); for the affine scan with 0 < a ≤ 1,
-``(⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2)·eps·Σ_{j≤i}|b_j|``.
+carry per block); for K4's rows entry with 0 < a ≤ 1,
+``prefix_scan.k4_rows_bound_steps(i)·eps·Σ_{j≤i}|b_j|`` (the fold's
+i + 2 up to 64 columns, bit for bit to its plain walk; past them the
+Gluon tree's ⌈log2 bc⌉ + ⌈(i+1)/bc⌉ + 2); K4's state-scan entry (the
+fold) bit for bit against its plain walk.
 """
 import math
 
@@ -71,11 +75,12 @@ def within_k3_bound(x, got, eps=None):
     return bool(((got.double() - want).abs() <= bound).all())
 
 
-def scan_bound(abs_cum, eps, bc, extra):
-    """Elementwise bound along the last axis."""
-    i = torch.arange(abs_cum.shape[-1], device=abs_cum.device,
+def scan_bound(abs_cum, eps, rows, cols):
+    """K4's rows entry's elementwise bound along the last axis, its
+    route's (``prefix_scan.k4_rows_bound_steps``)."""
+    k = torch.tensor([ps.k4_rows_bound_steps(i, rows, cols)
+                      for i in range(cols)], device=abs_cum.device,
                      dtype=torch.float64)
-    k = math.ceil(math.log2(bc)) + torch.ceil((i + 1) / bc) + extra
     return k * eps * abs_cum
 
 
@@ -324,10 +329,11 @@ def test_k4_within_summation_bound(cuda, shape):
         want.append(y)
         sums.append(s)
     want, sums = torch.stack(want, -1), torch.stack(sums, -1)
-    bound = scan_bound(sums, float(torch.finfo(torch.float32).eps),
-                       ps.block_shape(*shape)[1], 2)
+    bound = scan_bound(sums, float(torch.finfo(torch.float32).eps), *shape)
     assert bool(((got.double() - want).abs() <= bound).all())
     assert bool(((plain.double() - want).abs() <= bound).all())
+    if shape[1] <= ps.K4_FOLD_COLS:           # the fold: its plain walk
+        assert torch.equal(got, plain)
 
 
 def test_k4_promotes_mixed_dtypes(cuda):
@@ -388,7 +394,7 @@ def test_k4_state_scan_is_the_former_composition_bit_for_bit(
 
 def test_k4_state_scan_bit_for_bit_in_bfloat16(cuda):
     # bf16 states and decay: the entry scans in the promoted dtype in the
-    # same layout as K4 on the materialised operands
+    # same order as K4 on the materialised operands
     rng = np.random.default_rng(15)
     a = torch.from_numpy(np.exp(-np.abs(rng.standard_normal(
         (2, 16, 4), dtype=np.float32)))).to(cuda, torch.bfloat16)
@@ -468,7 +474,45 @@ def test_k4_statescan_backward_within_the_summation_bound(cuda, smoke):
     for mode in ("kernel", "interpret"):
         y = ops.chunk_scan_state(a, s, axis=1, mode=mode)
         grads[mode] = torch.autograd.grad(y, (a, s), g)
-    bc = ps.block_shape(g.numel() // shape[1], shape[1])[1]
-    bad, _ = smoke.statescan_grad_misses(grads, a.detach(), s.detach(), g,
-                                         bc)
+    bad, _ = smoke.statescan_grad_misses(grads, a.detach(), s.detach(), g)
     assert not any(bad.values()), bad
+    # the fused da: the interpret mode's reduction bit for bit, and the
+    # same bits on a second run (no atomics)
+    for i in (0, 1):
+        assert torch.equal(grads["kernel"][i], grads["interpret"][i])
+    y = ops.chunk_scan_state(a.detach(), s.detach(), axis=1, mode="kernel")
+    first = ps.state_scan_grad(a.detach(), y, g, 1)
+    assert torch.equal(first[0], ps.state_scan_grad(a.detach(), y, g, 1)[0])
+
+
+@pytest.mark.parametrize("a_shape,s_shape,axis", [
+    ((4, 16, 64), (4, 16, 64, 64, 128), 1),      # chip_smoke L's train step
+    ((4, 8, 64), (4, 8, 64, 50, 16), 1),         # Hymba-1.5B: P·N = 800
+    ((3, 5, 7), (3, 5, 7, 9, 11), 1),            # ragged
+    ((2, 8, 4), (2, 8, 4, 3, 5), -2),            # past the decay's dims
+    ((2, 8, 1), (2, 8, 4, 3, 5), 1),             # a broadcast decay
+    ((2, 80, 3), (2, 80, 3, 4, 4), 1),           # batches of chunks
+])
+def test_k4_fused_da_is_its_plain_reduction(cuda, a_shape, s_shape, axis):
+    # the reverse walk's da and its second pass against state_da_plain
+    # (the same reduction in torch) bit for bit, λ against the plain
+    # walk, and da within n·eps·Σ|λ·y| of the unfused product's sum
+    rng = np.random.default_rng(24)
+    a = torch.from_numpy(1 - rng.uniform(0, 1, a_shape).astype(np.float32)
+                         ).to(cuda)
+    s = keys(s_shape, torch.float32, 25, cuda)
+    g = keys(s_shape, torch.float32, 26, cuda)
+    y = ps.chunk_scan_state_kernel(a, s, axis)
+    before = (ps.K4.reverse_launches, ps.K4.da_launches)
+    da, lam = ps.state_scan_grad(a, y, g, axis)
+    assert (ps.K4.reverse_launches, ps.K4.da_launches) == (
+        before[0] + 1, before[1] + 1)
+    pda, plam = ps.state_scan_grad(a, y, g, axis, interpret=True)
+    assert torch.equal(lam, plam) and torch.equal(da, pda)
+    ax = axis % len(s_shape)
+    want = ps._prev_product(lam, y, ax, a.ndim)
+    absum = ps._prev_product(lam.abs(), y.abs(), ax, a.ndim)
+    terms = math.prod(s_shape) // want.numel()
+    eps = float(torch.finfo(torch.float32).eps)
+    assert da.shape == want.shape
+    assert bool(((da - want).abs() <= terms * eps * absum).all())

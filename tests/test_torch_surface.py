@@ -67,7 +67,7 @@ EXEMPT = {
         "prefix_sum_pallas": ("prefix_sum_kernel", "kernel: ported as K3, "
                               "csrc/prefix_scan.cu"),
         "chunk_scan_pallas": ("chunk_scan_kernel", "kernel: ported as K4, "
-                              "GLUON_SOURCE"),
+                              "csrc/prefix_scan.cu"),
     },
     "kernels/sortnet.py": {
         "sort_chunks_pallas": ("sort_chunks_kernel", "kernel: ported as K5, "
