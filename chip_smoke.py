@@ -1694,7 +1694,9 @@ def device_events(fn, wall: list | None = None
     """(name, device ms) of each device event (kernels, copies, fills) of
     one call of ``fn`` in a ``torch.profiler`` trace, in the order they
     started; None when the
-    profiler sees no device time. The trace runs a warm-up call first and
+    profiler sees no device time. The program's spans, which the profiler
+    also draws on the device's timeline as user annotations, are no
+    device work and are left out. The trace runs a warm-up call first and
     keeps only the second: a launch right after the trace starts can be
     missing from it (K5, the mergesort app's first kernel, was). Each
     call also sits between two spin kernels of ~5 ms, left out of the
@@ -1713,6 +1715,7 @@ def device_events(fn, wall: list | None = None
         events.extend((e.name, e.device_time_total / 1e3) for e in sorted(
             (e for e in prof.events()
              if e.device_type == DeviceType.CUDA
+             and not e.is_user_annotation
              and not e.name.startswith("ProfilerStep")
              and "spin_kernel" not in e.name),
             key=lambda e: e.time_range.start))

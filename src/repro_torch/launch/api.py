@@ -49,6 +49,7 @@ from repro_torch.models.params import (DTYPES, abstract_params, logical_axes,
                                        param_specs, params_from_numpy,
                                        tensor_from_numpy, tree_items,
                                        tree_map)
+from repro_torch.obs import trace as obs
 from repro_torch.optim import AdamW, clip_by_global_norm, get_optimizer
 from repro_torch.optim.optimizers import tree_leaves
 
@@ -170,7 +171,8 @@ def make_grad_fn(cfg: ModelConfig, grad_accum: int = 0):
     """``grads(params, batch) → (grads, metrics)``: the loss's gradient
     in each param's dtype, or, over ``grad_accum`` > 1 microbatches (the
     batch's rows split evenly), their mean accumulated in float32, with
-    the mean loss."""
+    the mean loss. Each microbatch's loss is the span ``step.forward``,
+    its gradient ``step.backward``."""
     grad_accum = grad_accum or cfg.grad_accum
 
     def one(params, batch):
@@ -178,8 +180,10 @@ def make_grad_fn(cfg: ModelConfig, grad_accum: int = 0):
         live = [p.detach().requires_grad_() for p in leaves]
         it = iter(live)
         tracked = _rebuild(params, it)
-        loss, metrics = M.loss_fn(cfg, tracked, batch)
-        gs = torch.autograd.grad(loss, live, materialize_grads=True)
+        with obs.span("step.forward"):
+            loss, metrics = M.loss_fn(cfg, tracked, batch)
+        with obs.span("step.backward"):
+            gs = torch.autograd.grad(loss, live, materialize_grads=True)
         return _rebuild(params, iter(gs)), {k: v.detach()
                                             for k, v in metrics.items()}
 
@@ -243,7 +247,8 @@ def make_train_step(cfg: ModelConfig, grad_accum: int = 0,
                     specs: dict | None = None):
     """``step(state, batch) → (new state, metrics)``; on a ``mesh`` of
     more than one rank, over each rank's shards (``specs``: the state's,
-    :func:`state_specs`) and rows."""
+    :func:`state_specs`) and rows. On one rank the clip is the span
+    ``step.clip`` and the optimizer's update ``step.update``."""
     opt = _optimizer(cfg)
     grads_of = make_grad_fn(cfg, grad_accum)
     if mesh is not None and mesh.size > 1:
@@ -251,9 +256,11 @@ def make_train_step(cfg: ModelConfig, grad_accum: int = 0,
 
     def step(state, batch):
         grads, metrics = grads_of(state["params"], batch)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
-        new_params, new_opt = opt.update(grads, state["opt"],
-                                         state["params"], state["step"])
+        with obs.span("step.clip"):
+            grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        with obs.span("step.update"):
+            new_params, new_opt = opt.update(grads, state["opt"],
+                                             state["params"], state["step"])
         metrics = dict(metrics)
         metrics["grad_norm"] = gnorm
         return {"params": new_params, "opt": new_opt,

@@ -53,6 +53,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import isa
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed import sharding
+from repro_torch.obs import trace as obs
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -228,14 +229,19 @@ def _save_dots(ctx, op, *args, **kwargs):
             else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _remat(cfg: ModelConfig, fn):
+def _remat(cfg: ModelConfig, fn, layer: int = 0):
     """``fn`` under ``cfg.remat``: ``none`` keeps every activation;
     ``full`` saves only the block's inputs and recomputes the block in
     the backward (``nothing_saveable``); ``dots`` also saves the outputs
     of the non-batched matmuls (``dots_with_no_batch_dims_saveable``).
     The recompute runs under the dispatch mode of the forward: autograd
     runs a CUDA backward on a thread of its own, where the registry's
-    thread-local mode would be the default."""
+    thread-local mode would be the default. It is the span
+    ``model.layer.recompute`` (attr ``layer``): the same wrapper runs
+    the forward, outside any backward. Checkpoint stops a recompute by
+    raising once the backward has its tensors back, so under a Tracer
+    that span, and the ``ssm.ssd`` inside it, carry ``error:
+    _StopRecomputationError``."""
     if cfg.remat == "none":
         return fn
     kw = {}
@@ -247,7 +253,10 @@ def _remat(cfg: ModelConfig, fn):
         mode = isa.registry.mode
 
         def under_mode(*a):
-            with isa.use(mode):
+            recompute = (obs.span("model.layer.recompute", layer=layer)
+                         if torch._C._current_graph_task_id() != -1
+                         else obs.NULL_SPAN)
+            with isa.use(mode), recompute:
                 return fn(*a)
         return _ckpt.checkpoint(under_mode, *args, use_reentrant=False, **kw)
     return rematerialised
@@ -255,12 +264,13 @@ def _remat(cfg: ModelConfig, fn):
 
 def stack(cfg: ModelConfig, layer_params: dict, x: torch.Tensor, positions,
           train: bool = False):
+    """The blocks in order, each the span ``model.layer`` (attr
+    ``layer``); ``train`` rematerialises each by ``cfg.remat``."""
     fn = _gathered(cfg, functools.partial(block, cfg))
-    if train:
-        fn = _remat(cfg, fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in _layers(layer_params, cfg.n_layers):
-        x, a = fn(p, x, positions)
+    for i, p in enumerate(_layers(layer_params, cfg.n_layers)):
+        with obs.span("model.layer", layer=i):
+            x, a = (_remat(cfg, fn, i) if train else fn)(p, x, positions)
         aux = aux + a
     return x, aux / cfg.n_layers
 
@@ -296,11 +306,16 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, train: bool = False):
 def _forward(cfg: ModelConfig, params: dict, batch: dict, train: bool, tp):
     """:func:`forward` on params whose top leaves are gathered, its
     output as the residual holds it (``tp``)."""
+    x, aux = _stacked(cfg, params, batch, train, tp)
+    return rmsnorm(x, params["final_norm"]), aux
+
+
+def _stacked(cfg: ModelConfig, params: dict, batch: dict, train: bool, tp):
+    """The stack's output before the final norm, and the MoE aux loss."""
     x = _embed(cfg, params, batch, tp)
     s = batch["embeddings" if "embeddings" in batch else "tokens"].shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    x, aux = stack(cfg, params["layers"], x, positions, train)
-    return rmsnorm(x, params["final_norm"]), aux
+    return stack(cfg, params["layers"], x, positions, train)
 
 
 def _unembed_w(cfg: ModelConfig, params: dict) -> torch.Tensor:
@@ -334,6 +349,24 @@ def _last_logits(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return C.all_gather(logits, tp.group, 1)[:, :cfg.vocab]
 
 
+def _head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
+               targets: torch.Tensor, tp):
+    """The CE (+ z-loss) of the final hidden states ``x``, whole or
+    ``cfg.ce_chunk`` positions at a time: (loss, metrics {ce, z_loss})."""
+    w = _unembed_w(cfg, params)
+    s = x.shape[1]
+    if not (cfg.ce_chunk and s % cfg.ce_chunk == 0):
+        return _logits_ce(cfg, w, x, targets, tp)
+    nc = s // cfg.ce_chunk
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, cfg.ce_chunk):
+        l, _ = _logits_ce(cfg, w, x[:, c:c + cfg.ce_chunk],
+                          targets[:, c:c + cfg.ce_chunk], tp)
+        tot = tot + l
+    loss = tot / nc
+    return loss, {"ce": loss, "z_loss": torch.zeros_like(loss)}
+
+
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             aux_weight: float = 0.01):
     """Mean next-token cross-entropy (+ z-loss, + ``aux_weight`` × the
@@ -342,24 +375,21 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
     and CE run chunk by chunk over the sequence (no (B, S, V) logits).
     On a mesh every model peer computes the loss of its rows, the
     hidden states gathered over the sequence under SP and the logits
-    its vocabulary block's."""
+    its vocabulary block's.
+
+    The final norm, unembed and CE are the span ``model.head``; their
+    backward, ``model.head.backward``."""
     params = _top(params)
     tp = _split(cfg, batch)
-    x, aux = _forward(cfg, params, batch, True, tp)
-    x = _enter(tp, x)
-    w = _unembed_w(cfg, params)
-    s = x.shape[1]
-    if cfg.ce_chunk and s % cfg.ce_chunk == 0:
-        nc = s // cfg.ce_chunk
-        tot = torch.zeros((), dtype=torch.float32, device=x.device)
-        for c in range(0, s, cfg.ce_chunk):
-            l, _ = _logits_ce(cfg, w, x[:, c:c + cfg.ce_chunk],
-                              batch["targets"][:, c:c + cfg.ce_chunk], tp)
-            tot = tot + l
-        loss = tot / nc
-        metrics = {"ce": loss, "z_loss": torch.zeros_like(loss)}
-    else:
-        loss, metrics = _logits_ce(cfg, w, x, batch["targets"], tp)
+    x, aux = _stacked(cfg, params, batch, True, tp)
+    back = obs.backward_span("model.head.backward")
+    with obs.span("model.head"):
+        if back is not None:
+            x = back.enter(x)
+        x = _enter(tp, rmsnorm(x, params["final_norm"]))
+        loss, metrics = _head_loss(cfg, params, x, batch["targets"], tp)
+        if back is not None:
+            loss = back.leave(loss)
     loss = loss + aux_weight * aux
     metrics.update(loss=loss, moe_aux=aux)
     return loss, metrics
@@ -512,9 +542,16 @@ def _block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, positions):
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict):
-    """Full-sequence pass building the decode cache.
+    """Full-sequence pass building the decode cache: the span
+    ``model.prefill``, each block ``model.layer`` (attr ``layer``), the
+    final norm and last logits ``model.head``.
 
     Returns (last-position logits (B, vocab) fp32, stacked cache)."""
+    with obs.span("model.prefill"):
+        return _prefill(cfg, params, batch)
+
+
+def _prefill(cfg: ModelConfig, params: dict, batch: dict):
     params = _top(params)
     tp = _split(cfg, batch)
     x = _embed(cfg, params, batch, tp)
@@ -523,11 +560,13 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict):
     caches = []
     blk = _gathered(cfg, functools.partial(_block_prefill, cfg))
     for i in range(cfg.n_layers):
-        x, c = blk(_layer(params["layers"], i), x, positions)
+        with obs.span("model.layer", layer=i):
+            x, c = blk(_layer(params["layers"], i), x, positions)
         caches.append(c)
     cache = tree_map(lambda *leaves: torch.stack(leaves), *caches)
-    x = rmsnorm(x, params["final_norm"])
-    return _last_logits(cfg, params, x, tp), cache
+    with obs.span("model.head"):
+        x = rmsnorm(x, params["final_norm"])
+        return _last_logits(cfg, params, x, tp), cache
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import trace as obs
 
 from .layers import rmsnorm
 
@@ -88,7 +89,24 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     """Training / prefill SSD pass. u: (B, S, D) → (B, S, D), a partial
     sum over the model peers when the heads are split (``tp``: the
     pass's ``ModelSplit``) (+ (final_state, conv_cache) of the rank's
-    heads when return_state, for decode)."""
+    heads when return_state, for decode).
+
+    The whole pass is the span ``ssm.ssd``, its intra-chunk chain
+    ``ssm.intra``, and its backward ``ssm.ssd.backward``: from the
+    output's gradient to the input's whole gradient, so in a hybrid
+    block the attention's backward on the same input lies inside."""
+    back = obs.backward_span("ssm.ssd.backward")
+    with obs.span("ssm.ssd"):
+        if back is None:
+            return _ssd(cfg, p, u, return_state, tp)
+        out = _ssd(cfg, p, back.enter(u), return_state, tp)
+        if return_state:
+            return back.leave(out[0]), out[1]
+        return back.leave(out)
+
+
+def _ssd(cfg: ModelConfig, p: dict, u: torch.Tensor, return_state: bool,
+         tp):
     b, s_in, _ = u.shape
     h, pd, n = p["A_log"].shape[0], cfg.ssm_headdim, cfg.ssm_state
     q = min(cfg.ssm_chunk, s_in)
@@ -130,23 +148,28 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     # under grad, where autograd keeps what exp and the products saved
     tracked = torch.is_grad_enabled() and any(
         t.requires_grad for t in (u, *p.values()))
-    upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                   device=u.device))[None, None, :, :, None]
-    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,C,Q,Q,H) i-j
-    if tracked:
-        decay = decay.masked_fill(upper, 0.0).exp().masked_fill(upper, 0.0)
-    else:
-        decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
-    decay = decay.to(cdt)
-    g = torch.einsum("bcin,bcjn->bcij", ccc.float(), bcc.float()).to(cdt)
-    # w_intra = g·decay·dt_j, (B,C,Q,Q,H): the only large intermediate
-    if tracked:
-        w_intra = decay * g[..., None] * dtc[:, :, None]
-    else:
-        w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
-    del decay, g
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(), xc.float())
-    del w_intra
+    with obs.span("ssm.intra"):
+        upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                       device=u.device))[None, None, :, :,
+                                                         None]
+        decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # i-j
+        if tracked:
+            decay = decay.masked_fill(upper, 0.0).exp().masked_fill(upper,
+                                                                     0.0)
+        else:
+            decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
+        decay = decay.to(cdt)                              # (B,C,Q,Q,H)
+        g = torch.einsum("bcin,bcjn->bcij", ccc.float(),
+                         bcc.float()).to(cdt)
+        # w_intra = g·decay·dt_j, (B,C,Q,Q,H): the only large intermediate
+        if tracked:
+            w_intra = decay * g[..., None] * dtc[:, :, None]
+        else:
+            w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
+        del decay, g
+        y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(),
+                               xc.float())
+        del w_intra
 
     # chunk end-states  S_c = Σ_j exp(cum_Q - cum_j) dt_j B_j x_j
     decay_end = torch.exp(cum[:, :, -1:, :] - cum).to(cdt)  # (B,C,Q,H)

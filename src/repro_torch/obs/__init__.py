@@ -4,7 +4,8 @@ top of it.
 Signal modules:
 
 * :mod:`repro_torch.obs.trace` — structured spans with parent/child
-  links; byte-stable JSONL, Chrome-trace and OTLP exports.
+  links; byte-stable JSONL and Chrome-trace exports; the same spans as
+  ``torch.profiler`` ranges while the profiler records.
 * :mod:`repro_torch.obs.metrics` — counters / gauges / fixed-bucket
   histograms in one process-global registry; Prometheus text exposition
   and a JSON snapshot, served over HTTP by :func:`start_http_server`

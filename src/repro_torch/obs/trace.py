@@ -1,9 +1,9 @@
-"""Structured spans over the request lifecycle.
+"""Structured spans over the request lifecycle and the model's path.
 
-The PyTorch port's copy of ``repro/obs/trace.py`` (stdlib only).  Span
-names and attributes are the reference's, so exports from either
-package read the same: ``pallas_build`` keeps its name although the
-port's cold build generates and compiles a Triton kernel.
+The PyTorch port's copy of ``repro/obs/trace.py``.  Span names and
+attributes are the reference's, so exports from either package read the
+same: ``pallas_build`` keeps its name although the port's cold build
+generates and compiles a Triton kernel.
 
 Span taxonomy (parent ← child)::
 
@@ -18,11 +18,36 @@ Span taxonomy (parent ← child)::
             ├── pallas_build    cold build of the fused kernel (K1)
             └── part            one Plan part (graph plans only)
 
+The model's path (``models/model.py``, ``models/ssm.py``) and the
+trainer (``launch/api.py``), in the port only::
+
+    model.prefill               models.model.prefill: embed, the layers,
+    │                           the final norm and the last logits, root
+    ├── model.layer             one block of a forward or prefill
+    │   │                       (attr ``layer``)
+    │   └── ssm.ssd             ssm.ssd_forward, the SSD mixer's forward
+    │       └── ssm.intra       its (B, C, Q, Q, H) intra-chunk chain
+    └── model.head              the final norm and the LM head (logits;
+                                in training the CE and z-loss too)
+    step.forward                make_grad_fn: the loss (model.layer …,
+                                model.head), root
+    step.backward               make_grad_fn: autograd.grad, root
+    ├── model.layer.recompute   remat's recompute of one block (attr
+    │                           ``layer``; ssm.ssd … inside)
+    ├── ssm.ssd.backward        the SSD mixer's backward
+    └── model.head.backward     the LM head's backward
+    step.clip                   make_train_step: the global-norm clip
+    step.update                 make_train_step: the optimizer's update
 
 Tracing is **opt-in and near-zero when off**: the module global
 :data:`ACTIVE` is ``None`` by default and every instrumentation site
-collapses to one global read; :func:`span` returns the singleton
-:data:`NULL_SPAN` no-op context manager.
+collapses to two reads, :data:`ACTIVE` and the profiler's flag;
+:func:`span` then returns the singleton :data:`NULL_SPAN` no-op context
+manager.  While ``torch.profiler`` records, every span is also a
+``record_function`` range of its name, on the profiler's clock beside
+the device work launched inside it; spans that open in the backward
+(:func:`open_span`, :class:`BackwardSpan`) are ranges on the thread
+that runs the backward.
 
 Determinism: a :class:`Tracer` built on :class:`VirtualClock` assigns
 sequential span ids and synthetic timestamps, so
@@ -35,6 +60,9 @@ from __future__ import annotations
 import json
 import time
 from typing import Any, Dict, List, Optional
+
+import torch
+from torch.autograd import profiler as _profiler
 
 
 class Span:
@@ -299,76 +327,6 @@ class Tracer:
         return json.dumps({"traceEvents": events,
                            "displayTimeUnit": "ms"}, sort_keys=True)
 
-    def export_otlp_json(self, service_name: str = "repro",
-                         scope_name: str = "repro.obs") -> str:
-        """OTLP/JSON (OpenTelemetry ``ExportTraceServiceRequest`` shape):
-        one resourceSpans → scopeSpans → spans list, ready to POST to an
-        OTLP/HTTP collector's ``/v1/traces`` or load into any OTel
-        tooling.
-
-        The span model maps directly: each root span starts a *trace*,
-        so every span's ``traceId`` is its root ancestor's id (zero-pad
-        hex, 16 bytes), ``spanId``/``parentSpanId`` are the internal
-        sequential ids (8 bytes), timestamps become unix-epoch
-        nanosecond strings (the clock's zero is the epoch — wall spans
-        are relative to process start, virtual spans to t=0), and attrs
-        become typed OTLP attribute values.  Byte-stable under a
-        :class:`VirtualClock`, like the other exports.
-        """
-        roots: Dict[int, int] = {}
-        by_id = {s.span_id: s for s in self.spans}
-        for s in sorted(self.spans, key=lambda s: s.span_id):
-            p = by_id.get(s.parent_id) if s.parent_id is not None else None
-            roots[s.span_id] = (roots[p.span_id] if p is not None
-                                else s.span_id)
-        out = []
-        for s in sorted(self.spans, key=lambda s: s.span_id):
-            end = s.end if s.end is not None else s.start
-            attrs = [{"key": k, "value": _otlp_value(v)}
-                     for k, v in sorted(s.attrs.items())]
-            out.append({
-                "traceId": f"{roots[s.span_id]:032x}",
-                "spanId": f"{s.span_id:016x}",
-                "parentSpanId": ("" if s.parent_id is None
-                                 else f"{s.parent_id:016x}"),
-                "name": s.name,
-                "kind": 1,  # SPAN_KIND_INTERNAL
-                "startTimeUnixNano": str(int(round(s.start * 1e9))),
-                "endTimeUnixNano": str(int(round(end * 1e9))),
-                "attributes": attrs,
-            })
-        doc = {"resourceSpans": [{
-            "resource": {"attributes": [{
-                "key": "service.name",
-                "value": {"stringValue": service_name},
-            }]},
-            "scopeSpans": [{
-                "scope": {"name": scope_name},
-                "spans": out,
-            }],
-        }]}
-        return json.dumps(doc, sort_keys=True, separators=(",", ":"))
-
-
-def _otlp_value(v) -> dict:
-    """One attr as an OTLP ``AnyValue``: typed when the type maps
-    (bool/int must be tested in that order — bool is an int subclass),
-    everything else through :func:`_chromable` then stringified."""
-    if isinstance(v, bool):
-        return {"boolValue": v}
-    if isinstance(v, int):
-        return {"intValue": str(v)}  # OTLP int64s ride as strings
-    if isinstance(v, float):
-        return {"doubleValue": v}
-    if isinstance(v, str):
-        return {"stringValue": v}
-    if isinstance(v, (list, tuple)):
-        return {"arrayValue": {"values": [_otlp_value(x) for x in v]}}
-    c = _chromable(v)
-    if type(c) is not type(v):
-        return _otlp_value(c)
-    return {"stringValue": repr(v)}  # pragma: no cover - defensive
-
 
 def _chromable(v):
     """Attrs down to JSON scalars: numpy 0-d values unwrap, anything
@@ -427,11 +385,118 @@ def using_tracer(tracer: Optional[Tracer]) -> _UsingTracer:
     return _UsingTracer(tracer)
 
 
+class _Profiled:
+    """A span's body as a ``torch.profiler`` range of the span's name,
+    around the active tracer's span (or :data:`NULL_SPAN`)."""
+
+    __slots__ = ("_range", "_inner")
+
+    def __init__(self, name: str, inner):
+        self._range = _profiler.record_function(name)
+        self._inner = inner
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self._inner.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return self._inner.__exit__(*exc)
+        finally:
+            self._range.__exit__(*exc)
+
+
 def span(name: str, parent=_CURRENT, **attrs):
-    """Module-level helper: a span on the active tracer, or
-    :data:`NULL_SPAN` when tracing is off.  The no-op path costs one
-    global read plus kwargs packing."""
+    """Module-level helper: a span on the active tracer, also a
+    ``record_function`` range while the profiler records, or
+    :data:`NULL_SPAN` when neither is on.  The no-op path costs two
+    global reads plus kwargs packing."""
     tr = ACTIVE
     if tr is None:
-        return NULL_SPAN
-    return tr.span(name, parent=parent, **attrs)
+        if not _profiler._is_profiler_enabled:
+            return NULL_SPAN
+        return _Profiled(name, NULL_SPAN)
+    sp = tr.span(name, parent=parent, **attrs)
+    return _Profiled(name, sp) if _profiler._is_profiler_enabled else sp
+
+
+class OpenSpan:
+    """A span opened in one place and closed in another
+    (:func:`open_span`): the active tracer's span, not stacked, so spans
+    opened meanwhile keep their parents, and the profiler's range."""
+
+    __slots__ = ("_tracer", "span", "_range")
+
+    def __init__(self, name: str, attrs: dict):
+        self._tracer = ACTIVE
+        self.span = (None if self._tracer is None
+                     else self._tracer.start_span(name, **attrs))
+        self._range = None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(name)
+            self._range.__enter__()
+
+    def close(self) -> None:
+        """Finish the span and end the range; a second call does
+        nothing."""
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        if self.span is not None:
+            self._tracer.finish(self.span)
+            self.span = None
+
+
+def open_span(name: str, **attrs) -> Optional[OpenSpan]:
+    """An :class:`OpenSpan`, or None when neither a tracer nor the
+    profiler is on (the same two reads as :func:`span`)."""
+    if ACTIVE is None and not _profiler._is_profiler_enabled:
+        return None
+    return OpenSpan(name, attrs)
+
+
+class BackwardSpan:
+    """A span over the backward of a region of the forward, by gradient
+    hooks on its tensors: :meth:`enter` hooks the region's input, whose
+    gradient is complete once the region's backward has run, to close
+    the span, and :meth:`leave` its output, whose gradient arrives
+    before the region's backward runs, to open it (:func:`open_span`).
+    A hook adds no node: the autograd graph is the one built without
+    the span."""
+
+    __slots__ = ("name", "attrs", "opened", "_entered")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.opened: Optional[OpenSpan] = None
+        self._entered = False
+
+    def _open(self, grad):
+        self.opened = open_span(self.name, **self.attrs)
+
+    def _close(self, grad):
+        if self.opened is not None:
+            self.opened.close()
+            self.opened = None
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad:
+            x.register_hook(self._close)
+            self._entered = True
+        return x
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """``y`` hooked to open the span; not where :meth:`enter` hooked
+        nothing, so no span is left open."""
+        if self._entered and y.requires_grad:
+            y.register_hook(self._open)
+        return y
+
+
+def backward_span(name: str, **attrs) -> Optional[BackwardSpan]:
+    """A :class:`BackwardSpan`, or None when neither a tracer nor the
+    profiler is on or grad is off: with tracing off the forward hooks no
+    tensor."""
+    if ACTIVE is None and not _profiler._is_profiler_enabled:
+        return None
+    return BackwardSpan(name, attrs) if torch.is_grad_enabled() else None

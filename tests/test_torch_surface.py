@@ -78,6 +78,10 @@ EXEMPT = {
     "kernels/topk.py": {
         "topk_pallas": ("topk_kernel", "kernel: ported as K7, csrc/topk.cu"),
     },
+    "obs/trace.py": {
+        "Tracer.export_otlp_json": (None, "no entry point of the port "
+                                    "writes OTLP"),
+    },
     "kernels/flashattn.py": {
         "flash_attention_pallas": ("FlashAttentionKernel", "kernel: ported "
                                    "as K8, csrc/flashattn.cu"),
@@ -85,7 +89,8 @@ EXEMPT = {
 }
 
 
-REASONS = ("renamed", "TPU-only", "XLA-only", "kernel: ported as")
+REASONS = ("renamed", "TPU-only", "XLA-only", "kernel: ported as",
+           "no entry point of the port")
 
 
 def _targets(node) -> list[str]:
