@@ -105,7 +105,12 @@ Phases (inputs from numpy with a fixed seed):
      generator; 4 prompts of 8192 tokens (each layer's state scan is G's
      (4, 32, 64, 64, 128)), 16 greedy tokens: K4 48 times in prefill and
      never in a decode step, each call held as it runs against float64
-     of its own inputs (nothing stored). Then serve.main with --sched
+     of its own inputs (nothing stored), and the SSD chunk-output kernel
+     48 times in prefill (none declined). That kernel alone at the
+     benchmark cell's shape (8 × 8192 tokens: (8, 32, 256, 64 heads,
+     headdim 64, state 128)) on random operands whose decays carry, held
+     against its plain version within 1e-5 of max |y| (its single-term
+     control outside), timed beside its byte bound and its plain version. Then serve.main with --sched
      --slo-shed --obs-tail --obs-trace at 4 × 256 tokens and a generous
      --slo-ms: its tokens equal the unscheduled server's at the same
      seed, it sheds nothing, and prints its sched, SLO and blame reports
@@ -113,7 +118,9 @@ Phases (inputs from numpy with a fixed seed):
      layers at every published width — d_model 1600, 25 heads and 5 KV
      heads of 64, d_ff 5504, 64 SSM heads of 50, state 16, SWA window
      1024, vocab 32001 — 4 prompts of 2048 tokens (twice the window: the
-     rolled SWA cache), 16 greedy tokens: K4 32 times in prefill; the
+     rolled SWA cache), 16 greedy tokens: K4 and the SSD chunk-output
+     kernel 32 times each in prefill (that kernel also alone at K's
+     (4, 8, 256, 64, 50, 16), as in J); the
      sliding-window attention takes the chunked path, as in the reference
      (no K8)
   L  the trainer (repro_torch.launch.api.make_train_step) on Mamba2-1.3B
@@ -481,11 +488,13 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _cuda  # noqa: E402
 from repro_torch.kernels import flashattn as fa  # noqa: E402
 from repro_torch.kernels import sortnet as sn  # noqa: E402
+from repro_torch.kernels import ssd_chunk as sc  # noqa: E402
 from repro_torch.kernels import stream_copy  # noqa: E402
 from repro_torch.kernels import topk as tk  # noqa: E402
 from repro_torch.kernels.flashattn import K8  # noqa: E402
 from repro_torch.kernels.prefix_scan import K3, K4  # noqa: E402
 from repro_torch.kernels.sortnet import K5, K6  # noqa: E402
+from repro_torch.kernels.ssd_chunk import SSD_CHUNK  # noqa: E402
 from repro_torch.kernels.topk import K7  # noqa: E402
 from repro_torch.launch import api, dryrun, serve, train  # noqa: E402
 from repro_torch.launch.mesh import DryMesh  # noqa: E402
@@ -539,6 +548,11 @@ SSM_SERVES = {   # phase: (arch, batch, prompt length, greedy tokens)
     "K": ("hymba_1p5b", 4, 2048, 16),
 }
 SCHED_PROMPT, SCHED_SLO_MS = 256, 1000.0   # phase J's scheduled run
+# the SSD chunk-output kernel alone (batch, chunks, chunk, heads, headdim,
+# state): J's at the benchmark cell's 8 × 8192 tokens, K's at its own
+SSD_CHUNK_SHAPES = {"J": (8, 32, 256, 64, 64, 128),
+                    "K": (4, 8, 256, 64, 50, 16)}
+SSD_TOL = 1e-5                     # of max |y|: the SSD layer tolerance
 TRAIN_ARCH = "mamba2_1p3b"         # phase L: trained uncut
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 3
 TRAIN_GRAD_LAYERS = 2              # phase L's gradient check (docstring)
@@ -642,6 +656,8 @@ KERNELS = {   # name: (route, source in the repo, the TPU kernel it replaces)
            "src/repro/kernels/topk.py:50"),
     "K8": ("cuda", "src/repro_torch/kernels/csrc/flashattn.cu",
            "src/repro/kernels/flashattn.py:84"),
+    "SSD": ("cuda", "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "none (the chunk output the JAX package leaves to XLA)"),
 }
 
 
@@ -2328,6 +2344,74 @@ def scheduled_serve(arch: str, batch: int, prompt_len: int, gen: int,
     return tokens, out.getvalue()
 
 
+def ssd_chunk_inputs(seed: int, shape, dev):
+    """The SSD chunk-output kernel's operands at ``shape`` = (batch,
+    chunks, chunk, heads, headdim, state), ((x, C, g, cum, dt, run, D),
+    B): x, C and B in bf16, g = C·Bᵀ, decays in (0.01, 0.2) a step that
+    carry across chunks, states of unit scale."""
+    b, nc, q, h, p, n = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*dims):
+        return torch.randn(dims, generator=gen, device=dev)
+
+    s = nc * q
+    x = rnd(b, s, h, p).to(torch.bfloat16)
+    c, bm = rnd(b, s, n).to(torch.bfloat16), rnd(b, s, n).to(torch.bfloat16)
+    g = torch.einsum("bcin,bcjn->bcij", c.float().reshape(b, nc, q, n),
+                     bm.float().reshape(b, nc, q, n))
+    dt = torch.nn.functional.softplus(rnd(b, s, h))
+    a = -(0.01 + 0.19 * torch.rand(h, generator=gen, device=dev))
+    cum = torch.cumsum((dt * a).reshape(b, nc, q, h), dim=2)
+    return (x, c, g, cum, dt, rnd(b, nc, h, p, n), rnd(h)), bm
+
+
+def ssd_chunk_counts(shape) -> tuple[int, int]:
+    """(bytes, operations) the SSD chunk output needs: x, C, g, cum, dt,
+    D and the states before chunks 1… read once, y written once in bf16;
+    2 per multiply-add of the causal intra product and the inter
+    product."""
+    b, nc, q, h, p, n = shape
+    s = nc * q
+    n_bytes = (2 * b * s * h * p + 2 * b * s * n + 4 * b * nc * q * q
+               + 2 * 4 * b * s * h + 4 * h + 4 * b * (nc - 1) * h * p * n
+               + 2 * b * s * h * p)
+    n_ops = 2 * b * nc * h * p * (q * (q + 1) // 2) + \
+        2 * b * (nc - 1) * h * q * n * p
+    return n_bytes, n_ops
+
+
+def ssd_chunk_row(check, label: str, dev, shape, launches: int,
+                  counted_in: str) -> dict:
+    """The SSD chunk-output kernel alone at ``shape``: float32 output
+    within ``SSD_TOL`` of max |y| of its plain version, the single-term
+    control outside it, the bf16 output the float32 one rounded once;
+    timed in bf16 beside its bound and its plain version."""
+    ops, _ = ssd_chunk_inputs(SEED + 23, shape, dev)
+    q = shape[2]
+    got = SSD_CHUNK(*ops, q, torch.float32)
+    control = SSD_CHUNK(*ops, q, torch.float32, pieces=1)
+    plain = sc.chunk_output_plain(*ops, q, torch.float32)
+    scale = float(plain.abs().max())
+    err, control_err = max_abs(got, plain), max_abs(control, plain)
+    check.true(f"{label} SSD chunk: {err / scale:.3e} of max |y| from its "
+               f"plain version, bound {SSD_TOL}", err <= SSD_TOL * scale)
+    check.true(f"{label} SSD chunk control: {control_err / scale:.3e} of "
+               f"max |y|, want above {SSD_TOL}", control_err > SSD_TOL * scale)
+    check.exact(f"{label} SSD chunk bf16 output",
+                SSD_CHUNK(*ops, q, torch.bfloat16), got.to(torch.bfloat16))
+    del got, control, plain
+    n_bytes, n_ops = ssd_chunk_counts(shape)
+    return entry(
+        f"{label} chunk output {shape} bf16", launches, err,
+        time_ms(lambda: SSD_CHUNK(*ops, q, torch.bfloat16)),
+        time_ms(lambda: sc.chunk_output_plain(*ops, q, torch.bfloat16),
+                reps=3),
+        n_bytes, n_ops, None, kernel="SSD", peak="bf16 tensor",
+        rel_err=err / scale, control_rel_err=control_err / scale,
+        launches_counted_in=counted_in)
+
+
 def run_phase_ssm(phase: str, dev, check, rows):
     """Serve one SSM family at every published width and all its layers
     (``SSM_SERVES[phase]``); each prefill K4 call held, as it runs,
@@ -2356,15 +2440,20 @@ def run_phase_ssm(phase: str, dev, check, rows):
             Tap(M, "decode_step", lambda *c: K4.launches) as tdec, \
             Tap(serve, "sample") as ts:
         K4.launches = K8.launches = K7.launches = K3.launches = 0
+        SSD_CHUNK.launches = SSD_CHUNK.declined = 0
         tokens, _, decode1_s = phase_h(cfg, params, prompts, gen, "auto")
         launches = {"K4": K4.launches, "K8": K8.launches,
-                    "K7": K7.launches, "K3": K3.launches}
+                    "K7": K7.launches, "K3": K3.launches,
+                    "SSD": SSD_CHUNK.launches}
+        declined = SSD_CHUNK.declined
     k4_calls = list(t4.calls)
     logits = [args[0] for args, _, _ in ts.calls]
     del t4, ts
-    check.true(f"{phase}: {launches} launches, want K4 {n_l} and no "
-               f"other kernel", launches == {"K4": n_l, "K8": 0, "K7": 0,
-                                             "K3": 0})
+    check.true(f"{phase}: {launches} launches, want K4 and SSD {n_l} and "
+               f"no other kernel", launches == {"K4": n_l, "K8": 0, "K7": 0,
+                                                "K3": 0, "SSD": n_l})
+    check.true(f"{phase}: {declined} SSD calls declined, want 0",
+               declined == 0)
     check.true(f"{phase}: K4 launches after prefill {tpre.calls}, want "
                f"[{n_l}]", tpre.calls == [n_l])
     check.true(f"{phase}: K4 launches after each decode step "
@@ -2407,6 +2496,9 @@ def run_phase_ssm(phase: str, dev, check, rows):
                        f"chunk_scan_state ({arch} prefill)",
                        f"phase {phase}'s server run (prefill)"))
     del a, states
+    rows.append(ssd_chunk_row(check, phase, dev, SSD_CHUNK_SHAPES[phase],
+                              launches["SSD"],
+                              f"phase {phase}'s server run (prefill)"))
 
     if phase == "J":
         # the scheduled decode: the same tokens as the unscheduled server
@@ -4544,7 +4636,8 @@ COUNTERS = {"K1": (K1, "launches"), "K3": (K3, "launches"),
             "K4": (K4, "launches"), "K4 reverse": (K4, "reverse_launches"),
             "K4 da": (K4, "da_launches"),
             "K5": (K5, "launches"), "K6": (K6, "launches"),
-            "K7": (K7, "launches"), "K8": (K8, "launches")}
+            "K7": (K7, "launches"), "K8": (K8, "launches"),
+            "SSD": (SSD_CHUNK, "launches")}
 
 
 def zero_counts() -> None:

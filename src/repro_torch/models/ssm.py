@@ -19,10 +19,16 @@ gated RMSNorm over ``d_inner`` sums its squares over the model peers
 (:func:`_gated_norm`), and ``out_proj`` is row-parallel, so the output
 is a partial sum over them. The reference's ``preferred_element_type=float32`` products on bf16
 operands (``ssd_bf16``) become float32 products of the operands cast to
-float32, which is exact. For serving, the (B, C, Q, Q, H) intra-chunk
-tensors are built in place, one at a time: at Mamba2-1.3B's widths and
-4 × 8192 tokens each is 2.15 GB in float32. Under grad (training) the
-same ops run out of place, with the same values.
+float32, which is exact. Without grad (serving) the chunk output (the
+intra-chunk term, the inter-chunk term and the D skip) is one launch of
+the SSD chunk-output kernel on CUDA tensors (``kernels/ssd_chunk.py``;
+its plain version under ``interpret``), the (B, C, Q, Q, H) weights
+kept in registers. Where the kernel's shape rule declines a call (counted
+in ``SSD_CHUNK.declined``), under ``ssd_bf16`` and under ``ref``, the
+eager chain builds those tensors in place, one at a time: at
+Mamba2-1.3B's widths and 4 × 8192 tokens each is 2.15 GB in float32.
+Under grad (training) the same eager ops run out of place, with the
+same values.
 """
 from __future__ import annotations
 
@@ -30,8 +36,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import isa
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ssd_chunk as sc
 from repro_torch.obs import trace as obs
 
 from .layers import rmsnorm
@@ -84,6 +92,53 @@ def _gated_norm(cfg: ModelConfig, p: dict, y: torch.Tensor,
     return (out * p["norm"].float()).to(g.dtype)
 
 
+def _intra_eager(ccc, bcc, xc, dtc, cum, cdt, tracked: bool):
+    """The eager chain's intra-chunk term (B, C, Q, H, P) in float32.
+
+    The reference's double where: the upper triangle of seg is zeroed
+    before exp, so exp never sees its large positive values, then the
+    decay is zeroed there. Two forms of the same ops in the same order,
+    so the same bits: in place without grad (one (B,C,Q,Q,H) tensor
+    alive at a time), out of place under grad (``tracked``), where
+    autograd keeps what exp and the products saved."""
+    q = cum.shape[2]
+    upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                   device=cum.device))[None, None, :, :, None]
+    decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # i-j
+    if tracked:
+        decay = decay.masked_fill(upper, 0.0).exp().masked_fill(upper, 0.0)
+    else:
+        decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
+    decay = decay.to(cdt)                                  # (B,C,Q,Q,H)
+    g = torch.einsum("bcin,bcjn->bcij", ccc.float(), bcc.float()).to(cdt)
+    # w_intra = g·decay·dt_j, (B,C,Q,Q,H): the only large intermediate
+    if tracked:
+        w_intra = decay * g[..., None] * dtc[:, :, None]
+    else:
+        w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
+    del decay, g
+    return torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(), xc.float())
+
+
+def _output_eager(y_intra, ccc, run, cum, xh, d, cdt, out_dtype):
+    """The eager chain's chunk output (B, S, H, P) in ``out_dtype``: the
+    inter-chunk term from the states before each chunk (``run`` shifted
+    by one chunk), added to ``y_intra``, and the D skip."""
+    b, s, h, pd = xh.shape
+    prev = torch.cat([torch.zeros_like(run[:, :1]), run[:, :-1]],
+                     dim=1)                                # state before c
+    decay_in = torch.exp(cum).to(cdt)                      # (B,C,Q,H)
+    cprev = torch.einsum("bcin,bchpn->bcihp", ccc.float(),
+                         prev.to(cdt).float())
+    del prev
+    y_inter = cprev * decay_in[..., None]
+    del cprev
+    y = (y_intra + y_inter).reshape(b, s, h, pd)
+    del y_inter
+    y = y + xh.float() * d.float()[:, None]
+    return y.to(out_dtype)
+
+
 def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
                 return_state: bool = False, tp=None):
     """Training / prefill SSD pass. u: (B, S, D) → (B, S, D), a partial
@@ -91,10 +146,11 @@ def ssd_forward(cfg: ModelConfig, p: dict, u: torch.Tensor,
     pass's ``ModelSplit``) (+ (final_state, conv_cache) of the rank's
     heads when return_state, for decode).
 
-    The whole pass is the span ``ssm.ssd``, its intra-chunk chain
-    ``ssm.intra``, and its backward ``ssm.ssd.backward``: from the
-    output's gradient to the input's whole gradient, so in a hybrid
-    block the attention's backward on the same input lies inside."""
+    The whole pass is the span ``ssm.ssd``; ``ssm.intra`` is the eager
+    intra-chunk chain, or g and the chunk-output kernel after K4; the
+    backward is ``ssm.ssd.backward``: from the output's gradient to the
+    input's whole gradient, so in a hybrid block the attention's
+    backward on the same input lies inside."""
     back = obs.backward_span("ssm.ssd.backward")
     with obs.span("ssm.ssd"):
         if back is None:
@@ -140,36 +196,16 @@ def _ssd(cfg: ModelConfig, p: dict, u: torch.Tensor, return_state: bool,
     ccc = cc.reshape(b, nc, q, n).to(cdt)
 
     cum = torch.cumsum(dtac, dim=2)                        # (B,C,Q,H)
-    # intra-chunk (quadratic within chunk). The reference's double where:
-    # the upper triangle of seg is zeroed before exp, so exp never sees
-    # its large positive values, then the decay is zeroed there. Two
-    # forms of the same ops in the same order, so the same bits: in place
-    # for serving (one (B,C,Q,Q,H) tensor alive at a time), out of place
-    # under grad, where autograd keeps what exp and the products saved
     tracked = torch.is_grad_enabled() and any(
         t.requires_grad for t in (u, *p.values()))
-    with obs.span("ssm.intra"):
-        upper = ~torch.tril(torch.ones((q, q), dtype=torch.bool,
-                                       device=u.device))[None, None, :, :,
-                                                         None]
-        decay = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # i-j
-        if tracked:
-            decay = decay.masked_fill(upper, 0.0).exp().masked_fill(upper,
-                                                                     0.0)
-        else:
-            decay.masked_fill_(upper, 0.0).exp_().masked_fill_(upper, 0.0)
-        decay = decay.to(cdt)                              # (B,C,Q,Q,H)
-        g = torch.einsum("bcin,bcjn->bcij", ccc.float(),
-                         bcc.float()).to(cdt)
-        # w_intra = g·decay·dt_j, (B,C,Q,Q,H): the only large intermediate
-        if tracked:
-            w_intra = decay * g[..., None] * dtc[:, :, None]
-        else:
-            w_intra = decay.mul_(g[..., None]).mul_(dtc[:, :, None])
-        del decay, g
-        y_intra = torch.einsum("bcijh,bcjhp->bcihp", w_intra.float(),
-                               xc.float())
-        del w_intra
+    how = sc.route(isa.current_mode(), u.is_cuda, tracked, cfg.ssd_bf16,
+                   sc.shape_error(q, pd, n, xh.dtype, cc.dtype) is None)
+    if how == "declined":
+        sc.SSD_CHUNK.declined += 1
+    eager = how in ("eager", "declined")
+    if eager:
+        with obs.span("ssm.intra"):
+            y_intra = _intra_eager(ccc, bcc, xc, dtc, cum, cdt, tracked)
 
     # chunk end-states  S_c = Σ_j exp(cum_Q - cum_j) dt_j B_j x_j
     decay_end = torch.exp(cum[:, :, -1:, :] - cum).to(cdt)  # (B,C,Q,H)
@@ -183,20 +219,19 @@ def _ssd(cfg: ModelConfig, p: dict, u: torch.Tensor, return_state: bool,
     a_chunk = torch.exp(cum[:, :, -1, :])                  # (B,C,H)
     run = kops.chunk_scan_state(a_chunk, states, axis=1)   # (B,C,H,P,N)
     del states
-    prev = torch.cat([torch.zeros_like(run[:, :1]), run[:, :-1]],
-                     dim=1)                                # state before c
 
-    decay_in = torch.exp(cum).to(cdt)                      # (B,C,Q,H)
-    cprev = torch.einsum("bcin,bchpn->bcihp", ccc.float(),
-                         prev.to(cdt).float())
-    del prev
-    y_inter = cprev * decay_in[..., None]
-    del cprev
-
-    y = (y_intra + y_inter).reshape(b, s, h, pd)
-    del y_intra, y_inter
-    y = y + xh.float() * p["D"].float()[:, None]
-    y = y.reshape(b, s, h * pd).to(u.dtype)
+    if eager:
+        y = _output_eager(y_intra, ccc, run, cum, xh, p["D"], cdt, u.dtype)
+        del y_intra
+    else:
+        # the chunk output in one pass: the SSD chunk-output kernel, or its
+        # plain version under interpret
+        chunks = sc.chunk_output_plain if how == "plain" else sc.SSD_CHUNK
+        with obs.span("ssm.intra"):
+            g = torch.einsum("bcin,bcjn->bcij", ccc.float(), bcc.float())
+            y = chunks(xh, cc, g, cum, dt, run, p["D"].float(), q, u.dtype)
+        del g
+    y = y.reshape(b, s, h * pd)
     y = _gated_norm(cfg, p, y, z, tp)
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])[:, :s_in]
     if return_state:

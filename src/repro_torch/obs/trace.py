@@ -26,7 +26,9 @@ trainer (``launch/api.py``), in the port only::
     ├── model.layer             one block of a forward or prefill
     │   │                       (attr ``layer``)
     │   └── ssm.ssd             ssm.ssd_forward, the SSD mixer's forward
-    │       └── ssm.intra       its (B, C, Q, Q, H) intra-chunk chain
+    │       └── ssm.intra       its chunk output: g and the chunk-output
+    │                           kernel after K4, or the eager intra-chunk
+    │                           chain
     └── model.head              the final norm and the LM head (logits;
                                 in training the CE and z-loss too)
     step.forward                make_grad_fn: the loss (model.layer …,
