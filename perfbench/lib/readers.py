@@ -12,6 +12,14 @@ def counts(run):
     return importlib.import_module(f"perfbench.counts.{run.model['family']}")
 
 
+def counter(run, name: str, **labels):
+    """The increase over the window of the program's counter ``name``
+    with exactly ``labels``; None where the program registers no such
+    counter."""
+    return run.counters.get((name, tuple(sorted(
+        (k, str(v)) for k, v in labels.items()))))
+
+
 def prompt_tokens(run) -> int:
     return sum(b.rows * b.prompt_len for b in run.batches)
 

@@ -83,13 +83,7 @@ class Serve:
         self.serve, self.M = serve, M
         self.cfg = ModelConfig(**self.model)
         self.params = weights.make(self.model, self.seed, self.device)
-        want = dict(weights.leaves(abstract_params(self.cfg)))
-        got = {k: (tuple(v.shape), v.dtype)
-               for k, v in weights.leaves(self.params)}
-        if got != want:
-            raise ValueError(f"the benchmark's weight layout differs from "
-                             f"the program's: {sorted(set(got) ^ set(want))}"
-                             f" or their shapes")
+        weights.check(self.params, abstract_params(self.cfg))
         warm = traffic.prompts(self.mix, self.model["vocab"], self.seed, 0,
                                self.device, stream="warm")
         self.request(warm, gen_steps=min(self.mix["gen"], 3))

@@ -17,8 +17,9 @@ are new token ids, uniform over the vocabulary, drawn from the seed.
 
 The check (:meth:`Train.check`) frees the program's state and runs the
 plain reference over the same first steps from the same weights:
-float32 arithmetic, each new parameter stored in the configuration's
-parameter dtype (:mod:`perfbench.reference.adamw`).
+float32 arithmetic, each new parameter stored in its leaf's dtype
+(:mod:`perfbench.reference.adamw`). The per-layer norms cover every
+stack of the weight tree (:func:`.weights.stacked_paths`).
 """
 from __future__ import annotations
 
@@ -49,10 +50,18 @@ def _norms(flat: dict) -> dict:
             flat.items()}
 
 
-def _layer_norms(flat: dict) -> dict:
-    """The norm of each layer's slice of every leaf stacked over layers."""
+def _layer_norms(flat: dict, stacked: set) -> dict:
+    """The norm of each layer's slice of every leaf in a stack (dotted
+    paths ``stacked``)."""
     return {k: v.float().flatten(1).norm(dim=1).tolist()
-            for k, v in flat.items() if k.startswith("layers.")}
+            for k, v in flat.items() if k in stacked}
+
+
+def _store(m: dict):
+    """``store(name, value)``: a leaf's new value rounded to the dtype it
+    is served in, back in float32."""
+    dtypes = weights.dtypes(m)
+    return lambda k, x: x.to(dtypes[k]).float()
 
 
 class Train:
@@ -62,6 +71,7 @@ class Train:
         self.config, self.mix, self.seed = config, mix, seed
         self.model, self.hyper = config["model"], config["train"]
         self.device = torch.device(device)
+        self.stacked = weights.stacked_paths(self.model)
 
     # -- the feed -------------------------------------------------------------
     def feed(self, n: int) -> dict:
@@ -96,11 +106,7 @@ class Train:
         self.cfg = ModelConfig(**self.model)
         self._check_optimizer(api)
         params = weights.make(self.model, self.seed, self.device)
-        want = dict(weights.leaves(abstract_params(self.cfg)))
-        got = {k: (tuple(v.shape), v.dtype) for k, v in _flat(params).items()}
-        if got != want:
-            raise ValueError("the benchmark's weight layout differs from "
-                             "the program's")
+        weights.check(params, abstract_params(self.cfg))
         self.step_fn = self._spanned_step(api)
         self.state = api.make_train_state(self.cfg, params)
         del params
@@ -113,7 +119,7 @@ class Train:
                 grad = {k: m / (1 - b1) for k, m in
                         _flat(self.state["opt"]["m"]).items()}
                 self.grad_norms = _norms(grad)
-                self.layer_norms = _layer_norms(grad)
+                self.layer_norms = _layer_norms(grad, self.stacked)
                 del grad
         self.losses = [float(v) for v in self.losses]
         self.moment_norms = _norms(_flat(self.state["opt"]["m"]))
@@ -196,10 +202,7 @@ class Train:
         ref = importlib.import_module(
             f"perfbench.reference.{self.model['family']}")
         no_tf32()
-        dtype = weights.DTYPES[self.model["param_dtype"]]
-
-        def store(x):
-            return x.to(dtype).float()
+        store = _store(self.model)
         params = {k: v.float() for k, v in
                   _flat(weights.make(self.model, self.seed,
                                      self.device)).items()}
@@ -215,7 +218,7 @@ class Train:
             losses.append(loss)
             if n == 0:
                 grad_norms = _norms(grads)
-                layer_norms = _layer_norms(grads)
+                layer_norms = _layer_norms(grads, self.stacked)
             adamw.step(self.hyper, params, grads, state, n, store)
             del grads
         change = _norms({k: params[k] - start[k] for k in params})

@@ -11,7 +11,7 @@ v from zero:
 
 with lr(t) rising linearly from 0 to ``lr`` over ``warmup`` steps, then
 a cosine to ``floor`` x ``lr`` at ``total_steps``. The new p is stored in
-the configuration's parameter dtype.
+the dtype of its leaf.
 """
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ def clip(grads: dict, max_norm: float) -> dict:
 def step(t: dict, params: dict, grads: dict, state: dict, n: int,
          store) -> None:
     """One update of ``params`` (name → float32 values) in place; ``state``
-    holds the moments; ``store`` rounds a new value to the stored
-    dtype."""
+    holds the moments; ``store(name, value)`` rounds a leaf's new value
+    to the dtype it is stored in."""
     lr = lr_at(t, n)
     c1 = 1 - t["b1"] ** (n + 1)
     c2 = 1 - t["b2"] ** (n + 1)
@@ -50,4 +50,4 @@ def step(t: dict, params: dict, grads: dict, state: dict, n: int,
         v = t["b2"] * v + (1 - t["b2"]) * g * g
         state[k] = (m, v)
         u = (m / c1) / (torch.sqrt(v / c2) + t["eps"]) + t["weight_decay"] * p
-        params[k] = store(p - lr * u)
+        params[k] = store(k, p - lr * u)

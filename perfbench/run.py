@@ -12,7 +12,11 @@ by those names, and the driver the mix's ``kind`` names.
 Set-up draws the weights on the card from ``--seed`` and warms the
 cell's shapes; ``setup_s`` runs from the start of this process to the
 first timed request. The window then runs the traffic for ``--seconds``
-(with ``--trace 1`` under ``torch.profiler``). After it, the device's
+(with ``--trace 1`` under ``torch.profiler``). The program's counters
+(``repro_torch.obs.metrics.REGISTRY``) are read just before the window
+and just after it, outside its timing; the record the metric readers
+take (:class:`Record`) holds each counter series' increase over the
+window (``counters``). After the window, the device's
 peak is read, the program's caches are freed and the plain reference
 checks a sample of the served requests (``correct``). The last line of
 standard output is the result; the numbers compared, each beside its
@@ -98,6 +102,18 @@ class Record:
     batches: list
     trace: object                       # lib.trace.Trace or None
     peak_window_bytes: int
+    # (name, sorted label pairs) → the counter series' increase over the
+    # window, for every counter the program registers
+    counters: dict = dataclasses.field(default_factory=dict)
+
+
+def _counters() -> dict:
+    """(name, sorted label pairs) → the value of each counter series the
+    program's registry holds now."""
+    from repro_torch.obs.metrics import REGISTRY
+    return {(name, tuple(sorted(s["labels"].items()))): s["value"]
+            for name, fam in REGISTRY.snapshot().items()
+            if fam["kind"] == "counter" for s in fam["series"]}
 
 
 def limits_of(workload: str) -> dict:
@@ -129,15 +145,18 @@ def run_cell(bench: dict, cell: dict, config: dict, mix: dict, seed: int,
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out: dict = {}
+    before = _counters()
     with tr.traced(trace, out):
         batches, window_s = run.window(seconds)
+    # a series first registered in the window started from 0
+    counters = {k: v - before.get(k, 0) for k, v in _counters().items()}
     peak_window = _peak(device)
     bad = forbidden_modules()
     if bad:
         return None, bad
 
     record = Record(config["model"], mix, setup_s, window_s, batches,
-                    out.get("trace"), peak_window)
+                    out.get("trace"), peak_window, counters)
     metrics = {}
     for m in cell_metrics(bench, cell["name"], trace):
         v = reader(m["name"])(record)

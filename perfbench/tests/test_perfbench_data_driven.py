@@ -2,10 +2,15 @@
 by new files and BENCHMARK.json entries alone: in a temporary copy of
 the benchmark, with no file of it edited, the new cell runs (on the CPU,
 at a reduced size, the look for a chip skipped) and reports the new
-metric. Once for a family the benchmark already has (``ssm``), and once
+metric. Once for a family the benchmark already has (``ssm``), once
 for one it has no file of (the port's ``dense`` transformer), whose
 plain reference, weight layout and laws come in a new
-``perfbench/reference/dense.py``."""
+``perfbench/reference/dense.py``, and once (``dense-tree``) with that
+reference giving the whole weight tree (``layout``, its norms stated
+in float32) and a metric that reads a program counter over the window
+(``readers.counter``; the counter stands in for one the program would
+register, counting ``serve.prefill`` calls: the window's batches, not
+set-up's warm-up)."""
 from __future__ import annotations
 
 import json
@@ -23,6 +28,15 @@ DRIVE = """
 import json, sys
 sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
 from perfbench import run
+if len(sys.argv) > 3:                 # count serve.prefill calls
+    from repro_torch.launch import serve
+    from repro_torch.obs.metrics import REGISTRY
+    prefill, calls = serve.prefill, REGISTRY.counter(sys.argv[3])
+
+    def counted(*a, **k):
+        calls.inc()
+        return prefill(*a, **k)
+    serve.prefill = counted
 bench, cell, config, mix = run.load_cell(sys.argv[2])
 result, bad = run.run_cell(bench, cell, config, mix, 2 ** 40 + 3, 0.0, True,
                            device="cpu")
@@ -76,6 +90,26 @@ def forward(m, params, prompts, served, precision="fp32"):
     return {"logits": logits(x, params["unembed"], m["vocab"], precision)}
 '''
 
+DENSE_TREE = DENSE + '''
+
+def layout(m):
+    from perfbench.lib import weights
+    d = m["d_model"]
+    one = layer_layout(m)
+    one["norm1"] = ((d,), "ones", "float32")
+    one["norm2"] = ((d,), "ones", "float32")
+    return {**weights.ends(m), "final_norm": ((d,), "ones", "float32"),
+            "layers": weights.stacked(one, m["n_layers"])}
+'''
+
+COUNTER = "perfbench_test_prefill_calls_total"
+COUNTER_METRIC = f"""from perfbench.lib import readers
+
+
+def read(run):
+    return readers.counter(run, "{COUNTER}")
+"""
+
 SSM_MODEL = {"name": "tiny-ssm", "family": "ssm", "n_layers": 2,
              "d_model": 64, "n_heads": 0, "n_kv_heads": 0, "d_ff": 0,
              "vocab": 512, "ssm_state": 16, "ssm_headdim": 16,
@@ -89,23 +123,29 @@ DENSE_MODEL = {"name": "tiny-dense", "family": "dense", "n_layers": 2,
                "act_dtype": "float32", "attn_impl": "chunked",
                "optimizer": "adamw"}
 
+DENSE_MIX = {"batch": 2, "prompt_len": 32, "gen": 4,
+             "check": {"batches": 2, "rows": 2}}
 CASES = {
-    # (model, mix, limits, new files under perfbench/)
+    # (model, mix, limits, new files under perfbench/, counter read)
     "ssm": (SSM_MODEL, {"batch": 2, "prompt_len": 128, "gen": 1,
                         "check": {"batches": 1, "rows": 1}},
-            {"token_gap": 0.5, "state_err": 0.2}, {}),
-    "dense": (DENSE_MODEL, {"batch": 2, "prompt_len": 32, "gen": 4,
-                            "check": {"batches": 2, "rows": 2}},
-              {"token_gap": 1e-3}, {"reference/dense.py": DENSE}),
+            {"token_gap": 0.5, "state_err": 0.2}, {}, None),
+    "dense": (DENSE_MODEL, DENSE_MIX, {"token_gap": 1e-3},
+              {"reference/dense.py": DENSE}, None),
+    "dense-tree": (dict(DENSE_MODEL, name="tiny-dense-tree"), DENSE_MIX,
+                   {"token_gap": 1e-3}, {"reference/dense.py": DENSE_TREE},
+                   COUNTER),
 }
 
 
-@pytest.mark.parametrize("family", sorted(CASES))
-def test_cell_added_by_files_alone(tmp_path, family):
-    model, mix, limits, files = CASES[family]
-    config, traffic = model["name"], f"serve-{family}"
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cell_added_by_files_alone(tmp_path, case):
+    model, mix, limits, files, counter = CASES[case]
+    family = model["family"]
+    config, traffic = model["name"], f"serve-{case}"
     workload = f"{config}.{traffic}"
     metric = f"rows_served.{traffic}"
+    counted = f"prefill_calls.{traffic}"
     copy = tmp_path / "checkout"
     shutil.copytree(ROOT / "perfbench", copy / "perfbench",
                     ignore=shutil.ignore_patterns(".cache", "__pycache__"))
@@ -125,6 +165,8 @@ def test_cell_added_by_files_alone(tmp_path, family):
         dict(mix, kind="serve", loop="closed", clients=1, ids="uniform")))
     (pb / "metrics" / f"{metric}.py").write_text(
         "def read(run):\n    return float(sum(b.rows for b in run.batches))\n")
+    if counter:
+        (pb / "metrics" / f"{counted}.py").write_text(COUNTER_METRIC)
     (pb / "limits" / f"{workload}.json").write_text(json.dumps(limits))
     bench = json.loads((copy / "BENCHMARK.json").read_text())
     bench["configs"].append({"name": config, "source":
@@ -141,15 +183,22 @@ def test_cell_added_by_files_alone(tmp_path, family):
                                "source": "program_counter", "layer": "device",
                                "moves": "prefill_tok_s",
                                "workloads": [workload]})
+    if counter:
+        bench["per_layer"].append(dict(bench["per_layer"][-1], name=counted,
+                                       unit="calls"))
     (copy / "BENCHMARK.json").write_text(json.dumps(bench))
 
-    out = subprocess.run([sys.executable, "-c", DRIVE, str(copy), workload],
+    out = subprocess.run([sys.executable, "-c", DRIVE, str(copy), workload]
+                         + ([counter] if counter else []),
                          capture_output=True, text=True, timeout=300,
                          env=dict(os.environ, PYTHONPATH=""))
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["correct"], result["checks"]
     assert set(result["checks"]) == set(limits)
-    assert result["metrics"][metric]["value"] >= mix["batch"]
+    rows = result["metrics"][metric]["value"]
+    assert rows >= mix["batch"]
+    if counter:                 # a prefill a batch, the warm-up left out
+        assert result["metrics"][counted]["value"] == rows / mix["batch"]
     after = {p: p.read_bytes() for p in before}
     assert after == before          # no file of the benchmark was edited
